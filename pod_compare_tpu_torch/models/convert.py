@@ -1,0 +1,105 @@
+"""JAX parameter tree -> state dict of this package (detectron2 names).
+
+The inverse of ``pod_compare_tpu/train/torch_convert.py``: conv kernels go
+from HWIO to OIHW, FrozenBN ``scale/bias/mean/var`` become
+``norm.weight/bias/running_mean/running_var``, and the flax module names map
+back onto the reference namespace:
+
+  resnet/stem_conv1, stem_norm1          -> backbone.bottom_up.stem.conv1(.norm)
+  resnet/res{S}_block{B}/conv{i}, norm{i} -> backbone.bottom_up.res{S}.{B}.conv{i}(.norm)
+  resnet/res{S}_block{B}/shortcut(_norm)  -> backbone.bottom_up.res{S}.{B}.shortcut(.norm)
+  fpn/lateral_res{L}, output_res{L}       -> backbone.fpn_lateral{L}, fpn_output{L}
+  fpn/p6, p7                              -> backbone.top_block.p6, p7
+  head/{cls,bbox}_subnet_conv{i}          -> head.{cls,bbox}_subnet.{2i}
+  head/{cls_score,bbox_pred,cls_var,bbox_cov}
+
+It takes plain nested dicts of numpy arrays and needs no JAX.
+"""
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_NORM_MAP = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _tensor(value, transpose: bool = False) -> torch.Tensor:
+    a = np.asarray(value, np.float32)
+    if transpose:
+        a = np.transpose(a, (3, 2, 0, 1))  # HWIO -> OIHW
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _conv(out: Dict, name: str, leaves: Mapping) -> None:
+    for leaf, value in leaves.items():
+        if leaf == "kernel":
+            out[f"{name}.weight"] = _tensor(value, transpose=True)
+        elif leaf == "bias":
+            out[f"{name}.bias"] = _tensor(value)
+        else:
+            raise KeyError(f"Unrecognized conv leaf {name}/{leaf}")
+
+
+def _norm(out: Dict, name: str, leaves: Mapping) -> None:
+    for leaf, value in leaves.items():
+        out[f"{name}.norm.{_NORM_MAP[leaf]}"] = _tensor(value)
+
+
+def _resnet(out: Dict, tree: Mapping) -> None:
+    pre = "backbone.bottom_up."
+    for mod, leaves in tree.items():
+        if mod == "stem_conv1":
+            _conv(out, pre + "stem.conv1", leaves)
+            continue
+        if mod == "stem_norm1":
+            _norm(out, pre + "stem.conv1", leaves)
+            continue
+        m = re.match(r"res(\d)_block(\d+)$", mod)
+        if not m:
+            raise KeyError(f"Unrecognized resnet module {mod}")
+        base = f"{pre}res{m.group(1)}.{m.group(2)}"
+        for sub, sub_leaves in leaves.items():
+            if sub in ("conv1", "conv2", "conv3", "shortcut"):
+                _conv(out, f"{base}.{sub}", sub_leaves)
+            elif sub in ("norm1", "norm2", "norm3"):
+                _norm(out, f"{base}.conv{sub[-1]}", sub_leaves)
+            elif sub == "shortcut_norm":
+                _norm(out, f"{base}.shortcut", sub_leaves)
+            else:
+                raise KeyError(f"Unrecognized block module {mod}/{sub}")
+
+
+def _fpn(out: Dict, tree: Mapping) -> None:
+    for mod, leaves in tree.items():
+        m = re.match(r"(lateral|output)_res(\d)$", mod)
+        if m:
+            _conv(out, f"backbone.fpn_{m.group(1)}{m.group(2)}", leaves)
+        elif mod in ("p6", "p7"):
+            _conv(out, f"backbone.top_block.{mod}", leaves)
+        else:
+            raise KeyError(f"Unrecognized fpn module {mod}")
+
+
+def _head(out: Dict, tree: Mapping) -> None:
+    for mod, leaves in tree.items():
+        m = re.match(r"(cls|bbox)_subnet_conv(\d+)$", mod)
+        if m:
+            _conv(out, f"head.{m.group(1)}_subnet.{2 * int(m.group(2))}", leaves)
+        elif mod in ("cls_score", "bbox_pred", "cls_var", "bbox_cov"):
+            _conv(out, f"head.{mod}", leaves)
+        else:
+            raise KeyError(f"Unrecognized head module {mod}")
+
+
+def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict (float32 CPU tensors) from the JAX package's parameter
+    tree, given as nested dicts of numpy arrays."""
+    out: Dict[str, torch.Tensor] = {}
+    converters = {"resnet": _resnet, "fpn": _fpn, "head": _head}
+    for top, tree in params.items():
+        if top not in converters:
+            raise KeyError(f"Unrecognized top-level module {top}")
+        converters[top](out, tree)
+    return out

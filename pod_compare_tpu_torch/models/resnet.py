@@ -1,0 +1,102 @@
+"""ResNet backbone (caffe-style bottlenecks, FrozenBN) for RetinaNet-FPN.
+
+Counterpart of ``pod_compare_tpu/models/resnet.py``; parameter names follow
+detectron2's ``build_resnet_backbone`` (``stem.conv1``, ``res{2..5}.{i}``).
+Inference only: FREEZE_AT has nothing to freeze here.
+"""
+
+from typing import Dict, Sequence
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from pod_compare_tpu_torch.models.layers import Conv2d, FrozenBatchNorm2d
+
+# depth -> blocks per stage (res2..res5)
+RESNET_STAGES = {
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+
+STAGE_STRIDES = {"res2": 4, "res3": 8, "res4": 16, "res5": 32}
+
+
+def _conv_bn(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
+    return Conv2d(
+        cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=False,
+        norm=FrozenBatchNorm2d(cout),
+    )
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 (stride) -> 3x3 -> 1x1, FrozenBN + ReLU, projection shortcut when
+    the shape changes."""
+
+    def __init__(self, cin: int, cout: int, cmid: int, stride: int, stride_in_1x1: bool = True):
+        super().__init__()
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.shortcut = _conv_bn(cin, cout, 1, stride) if (cin != cout or stride != 1) else None
+        self.conv1 = _conv_bn(cin, cmid, 1, s1)
+        self.conv2 = _conv_bn(cmid, cmid, 3, s3)
+        self.conv3 = _conv_bn(cmid, cout, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = self.shortcut(x) if self.shortcut is not None else x
+        y = F.relu(self.conv1(x))
+        y = F.relu(self.conv2(y))
+        return F.relu(self.conv3(y) + shortcut)
+
+
+class Stem(nn.Module):
+    """7x7/2 conv + FrozenBN + ReLU + 3x3/2 max pool."""
+
+    def __init__(self, channels: int = 64):
+        super().__init__()
+        self.conv1 = _conv_bn(3, channels, 7, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(F.relu(self.conv1(x)), 3, stride=2, padding=1)
+
+
+class ResNet(nn.Module):
+    """ResNet with FrozenBN returning a dict of stage features."""
+
+    def __init__(
+        self,
+        depth: int = 50,
+        out_features: Sequence[str] = ("res3", "res4", "res5"),
+        stem_channels: int = 64,
+        res2_out_channels: int = 256,
+        stride_in_1x1: bool = True,
+    ):
+        super().__init__()
+        self.out_features = tuple(out_features)
+        self.stem = Stem(stem_channels)
+        cin, cout, cmid = stem_channels, res2_out_channels, stem_channels
+        self.stage_names = []
+        for i, num_blocks in enumerate(RESNET_STAGES[depth]):
+            name = f"res{i + 2}"
+            blocks = []
+            for b in range(num_blocks):
+                stride = (1 if i == 0 else 2) if b == 0 else 1
+                blocks.append(BottleneckBlock(cin, cout, cmid, stride, stride_in_1x1))
+                cin = cout
+            self.add_module(name, nn.Sequential(*blocks))
+            self.stage_names.append(name)
+            cout *= 2
+            cmid *= 2
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.stem(x)
+        outputs = {}
+        for name in self.stage_names:
+            x = getattr(self, name)(x)
+            if name in self.out_features:
+                outputs[name] = x
+        return outputs
+
+    @staticmethod
+    def output_channels(res2_out: int = 256) -> Dict[str, int]:
+        return {f"res{i + 2}": res2_out * 2 ** i for i in range(4)}

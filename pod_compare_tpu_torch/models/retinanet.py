@@ -1,0 +1,243 @@
+"""Probabilistic RetinaNet: normalize -> R50 -> FPN -> probabilistic head.
+
+Counterpart of ``pod_compare_tpu/models/retinanet.py``. The head's conv
+tower runs once per level and feeds both the mean and the variance output
+convs; outputs are (N, H·W·A, k) float32 tensors concatenated over levels
+in the anchor layout of ``ops.anchors``. Parameter names follow the
+reference's detectron2 namespace (``backbone.bottom_up.*``,
+``head.cls_subnet.{0,2,4,6}``, ``head.cls_score`` ...).
+
+Dropout in the towers comes from outside, as a ``TowerDropout``: one object
+per stochastic head pass, called after each tower conv with the raw conv
+output and returning ReLU-then-dropout of it. ``KernelDropout`` draws the
+masks with the counter-based dropout kernel; ``InjectedMasks`` multiplies by
+given masks (the tests feed the JAX package the same masks). Without one,
+the towers apply a plain ReLU.
+"""
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from pod_compare_tpu_torch.models.fpn import FPN, FPN_STRIDES
+from pod_compare_tpu_torch.models.resnet import ResNet
+from pod_compare_tpu_torch.ops.anchors import AnchorGenerator
+from pod_compare_tpu_torch.ops.kernels.dropout import dropout
+
+TOWERS = ("cls_subnet", "bbox_subnet")
+
+
+class TowerDropout:
+    """ReLU + dropout after conv `layer` of tower `tower` (0 cls, 1 bbox) at
+    FPN level `level`; x is the raw conv output."""
+
+    def __call__(self, x: torch.Tensor, tower: int, layer: int, level: int) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class KernelDropout(TowerDropout):
+    """One stochastic head pass through the dropout kernel with fused ReLU.
+
+    `seeds[tower][layer]` seeds one mask draw per (tower, layer) that covers
+    every FPN level: level l uses the stream indices that follow those of
+    levels < l (`level_offsets`). With `batch_shared` the mask of each level
+    is one (H, W, C) pattern broadcast over the batch.
+    """
+
+    def __init__(self, seeds, rate: float, level_offsets: Sequence[int], batch_shared: bool):
+        self.seeds = seeds
+        self.rate = rate
+        self.level_offsets = list(level_offsets)
+        self.batch_shared = batch_shared
+
+    def __call__(self, x, tower, layer, level):
+        return dropout(
+            x, int(self.seeds[tower][layer]), self.rate,
+            batch_shared=self.batch_shared, offset=self.level_offsets[level], relu=True,
+        )
+
+
+class InjectedMasks(TowerDropout):
+    """Masks given from outside: `masks[tower][layer][level]` is a scale
+    tensor (0 or 1/keep) of shape (H, W, C) or (N, H, W, C), applied as
+    relu(x) * mask, as the JAX head applies its premultiplied masks."""
+
+    def __init__(self, masks):
+        self.masks = masks
+
+    def __call__(self, x, tower, layer, level):
+        mask = self.masks[tower][layer][level].to(device=x.device, dtype=x.dtype)
+        nchw = mask.permute(2, 0, 1)[None] if mask.dim() == 3 else mask.permute(0, 3, 1, 2)
+        return F.relu(x) * nchw
+
+
+def level_offsets(features: Sequence[torch.Tensor], batch_shared: bool) -> List[int]:
+    """Stream offset of each level in one mask draw over all levels."""
+    offsets, total = [], 0
+    for f in features:
+        offsets.append(total)
+        total += f[0].numel() if batch_shared else f.numel()
+    return offsets
+
+
+def _conv3(cin: int, cout: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, padding=1)
+
+
+class ProbabilisticRetinaNetHead(nn.Module):
+    """Shared RetinaNet head with class logits, box deltas, class logit
+    log-variances and box covariance parameters."""
+
+    def __init__(
+        self,
+        num_classes: int,
+        num_anchors: int,
+        num_convs: int = 4,
+        channels: int = 256,
+        compute_cls_var: bool = False,
+        compute_bbox_cov: bool = False,
+        bbox_cov_dims: int = 4,
+    ):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_anchors = num_anchors
+        self.num_convs = num_convs
+        self.bbox_cov_dims = bbox_cov_dims
+        for tower in TOWERS:
+            layers = []
+            for _ in range(num_convs):
+                layers += [_conv3(channels, channels), nn.ReLU()]
+            self.add_module(tower, nn.Sequential(*layers))
+        self.cls_score = _conv3(channels, num_anchors * num_classes)
+        self.bbox_pred = _conv3(channels, num_anchors * 4)
+        self.cls_var = _conv3(channels, num_anchors * num_classes) if compute_cls_var else None
+        self.bbox_cov = (
+            _conv3(channels, num_anchors * bbox_cov_dims) if compute_bbox_cov else None
+        )
+
+    def _convs(self, tower: int) -> List[nn.Conv2d]:
+        return list(getattr(self, TOWERS[tower]))[0::2]
+
+    def prefix(self, features: Sequence[torch.Tensor]):
+        """First tower conv of both towers at every level, before its ReLU.
+        It sees no dropout, so a bank of stochastic passes computes it once
+        (`rest` runs the other layers per pass)."""
+        return tuple([self._convs(t)[0](f) for f in features] for t in range(2))
+
+    def _flatten(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        # (N, A*k, H, W) -> (N, H*W*A, k), the reference's permute_to_N_HWA_K.
+        n, _, h, w = x.shape
+        return x.permute(0, 2, 3, 1).reshape(n, h * w * self.num_anchors, k)
+
+    def rest(self, prefix, tower_dropout: Optional[TowerDropout] = None):
+        """ReLU (+ dropout) after conv 0, convs 1.. with ReLU (+ dropout),
+        then the output convs; float32 outputs concatenated over levels."""
+        act = tower_dropout or (lambda x, tower, layer, level: F.relu(x))
+        outs: Dict[str, list] = {"box_cls": [], "box_delta": [], "box_cls_var": [],
+                                 "box_reg_var": []}
+        for level in range(len(prefix[0])):
+            feats = []
+            for t in range(2):
+                convs = self._convs(t)
+                x = act(prefix[t][level], t, 0, level)
+                for layer in range(1, self.num_convs):
+                    x = act(convs[layer](x), t, layer, level)
+                feats.append(x)
+            c, b = feats
+            outs["box_cls"].append(self._flatten(self.cls_score(c), self.num_classes))
+            outs["box_delta"].append(self._flatten(self.bbox_pred(b), 4))
+            if self.cls_var is not None:
+                outs["box_cls_var"].append(self._flatten(self.cls_var(c), self.num_classes))
+            if self.bbox_cov is not None:
+                outs["box_reg_var"].append(self._flatten(self.bbox_cov(b), self.bbox_cov_dims))
+        return {k: (torch.cat(v, dim=1).float() if v else None) for k, v in outs.items()}
+
+    def forward(self, features, tower_dropout: Optional[TowerDropout] = None):
+        return self.rest(self.prefix(features), tower_dropout)
+
+
+class ProbabilisticRetinaNet(nn.Module):
+    """Full detector. `backbone_features` and `head` are separate so that
+    MC-dropout inference runs the backbone once and the head M times."""
+
+    def __init__(
+        self,
+        num_classes: int,
+        num_anchors: int = 9,
+        depth: int = 50,
+        fpn_channels: int = 256,
+        num_convs: int = 4,
+        dropout_rate: float = 0.0,
+        compute_cls_var: bool = False,
+        compute_bbox_cov: bool = False,
+        bbox_cov_dims: int = 4,
+        pixel_mean: Tuple[float, ...] = (103.530, 116.280, 123.675),
+        pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0),
+        in_features: Sequence[str] = ("p3", "p4", "p5", "p6", "p7"),
+        compute_dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.in_features = tuple(in_features)
+        self.compute_dtype = compute_dtype
+        self.backbone = FPN(ResNet(depth=depth), out_channels=fpn_channels)
+        self.head = ProbabilisticRetinaNetHead(
+            num_classes, num_anchors, num_convs, fpn_channels,
+            compute_cls_var, compute_bbox_cov, bbox_cov_dims,
+        )
+        self.register_buffer("pixel_mean", torch.tensor(pixel_mean), persistent=False)
+        self.register_buffer("pixel_std", torch.tensor(pixel_std), persistent=False)
+
+    def cast_convs(self) -> "ProbabilisticRetinaNet":
+        """Cast conv weights to the compute dtype; FrozenBN stays float32."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                m.to(self.compute_dtype)
+        return self
+
+    def normalize(self, images: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) raw pixels (uint8 or float) -> normalized NCHW in the
+        compute dtype, channels_last in memory."""
+        x = (images.float() - self.pixel_mean) / self.pixel_std
+        return x.permute(0, 3, 1, 2).to(self.compute_dtype)
+
+    def backbone_features(self, images: torch.Tensor) -> List[torch.Tensor]:
+        feats = self.backbone(self.normalize(images))
+        return [feats[f].contiguous(memory_format=torch.channels_last) for f in self.in_features]
+
+    def forward(self, images: torch.Tensor, tower_dropout: Optional[TowerDropout] = None):
+        """Raw anchorwise outputs of one head pass."""
+        return self.head(self.backbone_features(images), tower_dropout)
+
+
+def build_model(cfg) -> ProbabilisticRetinaNet:
+    """The flagship model from a config node (cf. the JAX `build_model`)."""
+    pm = cfg.MODEL.PROBABILISTIC_MODELING
+    num_anchors = len(cfg.MODEL.ANCHOR_GENERATOR.SIZES[0]) * len(
+        cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0]
+    )
+    return ProbabilisticRetinaNet(
+        num_classes=cfg.MODEL.RETINANET.NUM_CLASSES,
+        num_anchors=num_anchors,
+        depth=cfg.MODEL.RESNETS.DEPTH,
+        fpn_channels=cfg.MODEL.FPN.OUT_CHANNELS,
+        num_convs=cfg.MODEL.RETINANET.NUM_CONVS,
+        dropout_rate=pm.DROPOUT_RATE,
+        compute_cls_var=pm.CLS_VAR_LOSS.NAME != "none",
+        compute_bbox_cov=pm.BBOX_COV_LOSS.NAME != "none",
+        bbox_cov_dims=4 if pm.BBOX_COV_LOSS.COVARIANCE_TYPE == "diagonal" else 10,
+        pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
+        pixel_std=tuple(cfg.MODEL.PIXEL_STD),
+        in_features=tuple(cfg.MODEL.RETINANET.IN_FEATURES),
+        compute_dtype=(
+            torch.bfloat16 if cfg.PARALLEL.COMPUTE_DTYPE == "bfloat16" else torch.float32
+        ),
+    )
+
+
+def build_anchor_generator(cfg) -> AnchorGenerator:
+    strides = [FPN_STRIDES[f] for f in cfg.MODEL.RETINANET.IN_FEATURES]
+    return AnchorGenerator.from_config(cfg, strides)
+

@@ -1,0 +1,193 @@
+"""Counter-based dropout: the CUDA kernel ``csrc/dropout.cu`` and its plain
+PyTorch version.
+
+Replaces the Pallas TPU kernel ``pod_compare_tpu/ops/pallas/dropout.py``
+(``hardware_dropout``). The TPU kernel draws bits from the chip's PRNG; here
+they come from Philox4x32-10 keyed on (seed, element index), so a mask is a
+pure function of its seed and the kernel and the plain version agree bit
+for bit. Element ``i`` of ``x``, counted in memory order, uses the stream
+index ``offset + i`` (per-sample) or ``offset + i % inner`` with ``inner =
+x.numel() // x.shape[0]`` (``batch_shared``: one mask broadcast over the
+batch, the MC bank's case). It is kept when its bits are below
+``min(floor(keep·2^32), 2^32 - 1)`` and then scaled by ``1/keep`` rounded
+to x's dtype, as the JAX MC bank's premultiplied scale masks are
+(``tower_dropout_masks(..., dtype=...)`` + ``apply_mask``). ``relu=True``
+applies ``x > 0 ? x : 0`` first.
+
+``dropout`` sends a CPU tensor to the plain version and a CUDA tensor to
+the kernel; anything else raises. ``LAUNCHES`` counts kernel launches.
+"""
+
+import ctypes
+import math
+
+import torch
+
+LAUNCHES = 0
+
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold: an element is kept when its bits are below it."""
+    return min(math.floor((1.0 - rate) * 2.0 ** 32), _MASK32)
+
+
+def keep_scale(rate: float, dtype: torch.dtype) -> float:
+    """1/keep rounded to `dtype` (exact as a Python float)."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
+
+
+# ------------------------------------------------------------ plain version
+def _mulhilo(m: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of m·b for m < 2^32 and int64 b in [0, 2^32),
+    in int64 arithmetic that never overflows."""
+    t = m * (b >> 16)  # < 2^48
+    s = m * (b & 0xFFFF) + ((t & 0xFFFF) << 16)  # < 2^49
+    return (t >> 16) + (s >> 32), s & _MASK32
+
+
+def philox4x32_10(counter_lo: torch.Tensor, counter_hi: torch.Tensor, seed: int):
+    """Philox4x32-10 of counters (lo, hi, 0, 0) under key (seed lo, seed hi):
+    four int64 tensors holding uint32 words."""
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    c0, c1 = counter_lo, counter_hi
+    c2 = torch.zeros_like(counter_lo)
+    c3 = torch.zeros_like(counter_lo)
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W0) & _MASK32
+            k1 = (k1 + _PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def keep_mask(inner: int, offset: int, seed: int, rate: float, device="cpu") -> torch.Tensor:
+    """(inner,) bool keep decisions for stream indices offset .. offset+inner-1."""
+    q = (offset >> 2) + torch.arange(inner // 4, dtype=torch.int64, device=device)
+    words = philox4x32_10(q & _MASK32, q >> 32, seed)
+    bits = torch.stack(words, dim=1).reshape(-1)
+    return bits < keep_threshold(rate)
+
+
+def _memory_order(x: torch.Tensor) -> torch.Tensor:
+    """A view of x whose logical order is x's memory order."""
+    if x.dim() == 4 and not x.is_contiguous() and x.is_contiguous(
+        memory_format=torch.channels_last
+    ):
+        return x.permute(0, 2, 3, 1)
+    return x
+
+
+def _restore_order(flat_like_mem: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    mem = _memory_order(x)
+    out = flat_like_mem.reshape(mem.shape)
+    return out.permute(0, 3, 1, 2) if mem is not x else out
+
+
+def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float, relu: bool = False):
+    """x kept where `keep` (broadcasting) and scaled by 1/keep in x's dtype,
+    0 elsewhere; with relu, elements not above 0 give 0 as well."""
+    if relu:
+        keep = keep & (x > 0)
+    scaled = x * keep_scale(rate, x.dtype)
+    return torch.where(keep, scaled, torch.zeros_like(scaled))
+
+
+def dropout_plain(
+    x: torch.Tensor,
+    seed: int,
+    rate: float,
+    batch_shared: bool = False,
+    offset: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """The kernel's function in PyTorch ops, on any device."""
+    outer, inner = _layout(x, batch_shared, offset)
+    keep = keep_mask(inner, offset, seed, rate, x.device)
+    flat = _memory_order(x).reshape(outer, inner)
+    return _restore_order(apply_keep(flat, keep, rate, relu), x)
+
+
+# ------------------------------------------------------------ kernel
+def _layout(x: torch.Tensor, batch_shared: bool, offset: int):
+    """(outer, inner) of the launch; raises on what the kernel does not take."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"dropout takes float32 or bfloat16, not {x.dtype}")
+    if not (x.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError("dropout needs a contiguous or channels_last tensor")
+    if x.numel() == 0 or (batch_shared and x.dim() < 2):
+        raise ValueError(f"dropout cannot take shape {tuple(x.shape)}")
+    outer = x.shape[0] if batch_shared else 1
+    inner = x.numel() // outer
+    if inner % 8 or offset % 4 or offset < 0:
+        raise ValueError(
+            f"dropout needs a per-mask size divisible by 8 and an offset divisible by 4, "
+            f"got {inner} and {offset}"
+        )
+    return outer, inner
+
+
+def _library():
+    from pod_compare_tpu_torch.ops.kernels import _build
+
+    lib = _build.load("dropout.cu")
+    fn = lib.pod_dropout_forward
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_uint,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dropout_cuda(
+    x: torch.Tensor,
+    seed: int,
+    rate: float,
+    batch_shared: bool = False,
+    offset: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """Launch csrc/dropout.cu on x's device and PyTorch's current stream."""
+    global LAUNCHES
+    if x.device.type != "cuda":
+        raise ValueError(f"dropout_cuda needs a CUDA tensor, got {x.device}")
+    outer, inner = _layout(x, batch_shared, offset)
+    out = torch.empty_like(x)
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("dropout needs 16-byte aligned storage")
+    fn = _library()
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], inner, outer, offset,
+            seed & 0xFFFFFFFFFFFFFFFF, keep_threshold(rate), keep_scale(rate, x.dtype),
+            int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dropout kernel launch failed with cudaError_t {err}")
+    LAUNCHES += 1
+    return out
+
+
+def dropout(
+    x: torch.Tensor,
+    seed: int,
+    rate: float,
+    batch_shared: bool = False,
+    offset: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """Dropout (with an optional fused ReLU) of x under `seed`: the plain
+    version for a CPU tensor, the CUDA kernel for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return dropout_plain(x, seed, rate, batch_shared, offset, relu)
+    if x.device.type == "cuda":
+        return dropout_cuda(x, seed, rate, batch_shared, offset, relu)
+    raise ValueError(f"dropout has no path for device {x.device}")

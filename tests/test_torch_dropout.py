@@ -1,0 +1,187 @@
+"""The port's counter-based dropout (plain version here; the CUDA kernel on a
+card) against its contract and against the JAX MC bank's masks.
+
+The JAX Pallas kernel cannot be the reference on the CPU: under the
+interpret mode of this JAX version its hardware-PRNG draw drops nothing. So
+the JAX side is the dispatcher's statistical contract
+(tests/test_pallas_dropout.py) and the premultiplied masks of
+`tower_dropout_masks(..., dtype=f32)` + `apply_mask`, which the MC bank
+uses. Statistical bands are 6 standard deviations of a binomial share.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pod_compare_tpu.ops.pallas.dropout import apply_mask, tower_dropout_masks
+from pod_compare_tpu_torch.models import KernelDropout, level_offsets
+from pod_compare_tpu_torch.ops.kernels import dropout as kd
+
+RATE = 0.2
+
+
+def _band(n, rate=RATE):
+    return 6.0 * math.sqrt(rate * (1 - rate) / n)
+
+
+def test_philox_known_answers():
+    """Random123's known-answer vectors for Philox4x32-10 (counter words
+    2 and 3 zero here, so the first vector and two of our own)."""
+    words = kd.philox4x32_10(torch.tensor([0]), torch.tensor([0]), 0)
+    assert [int(w) for w in words] == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+    # Equal to the scalar definition for large counters and keys.
+    m0, m1, w0, w1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85
+
+    def scalar(c, k):
+        for r in range(10):
+            if r:
+                k = [(k[0] + w0) & 0xFFFFFFFF, (k[1] + w1) & 0xFFFFFFFF]
+            p0, p1 = m0 * c[0], m1 * c[2]
+            c = [(p1 >> 32) ^ c[1] ^ k[0], p1 & 0xFFFFFFFF, (p0 >> 32) ^ c[3] ^ k[1],
+                 p0 & 0xFFFFFFFF]
+        return c
+
+    for lo, hi, seed in [(0xFFFFFFFF, 0xFFFFFFFF, 2 ** 64 - 1), (12345, 7, 0xDEADBEEFCAFE)]:
+        words = kd.philox4x32_10(torch.tensor([lo]), torch.tensor([hi]), seed)
+        expect = scalar([lo, hi, 0, 0], [seed & 0xFFFFFFFF, seed >> 32])
+        assert [int(w) for w in words] == expect
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_keep_share_scale_and_mean(dtype):
+    x = torch.ones(4, 64, 32, 32, dtype=dtype)
+    out = kd.dropout(x, seed=3, rate=RATE).float()
+    dropped = float((out == 0).float().mean())
+    assert abs(dropped - RATE) < _band(out.numel())
+    np.testing.assert_array_equal(out[out != 0].numpy(), 1.25)
+    assert abs(float(out.mean()) - 1.0) < 1.25 * _band(out.numel())
+
+
+def test_expectation_over_seeds_is_the_input():
+    """E[out] = x: the mean over many seeds of each element approaches x."""
+    x = torch.randn(1, 8, 4, 8)
+    outs = torch.stack([kd.dropout(x, seed=s, rate=RATE) for s in range(2000)])
+    sd = x.abs() * math.sqrt(RATE / (1 - RATE)) / math.sqrt(outs.shape[0])
+    assert ((outs.mean(dim=0) - x).abs() <= 6 * sd + 1e-6).all()
+
+
+def test_distinct_seeds_distinct_masks_same_seed_replays():
+    x = torch.ones(2, 16, 8, 8)
+    a = kd.dropout(x, seed=1, rate=0.5)
+    b = kd.dropout(x, seed=2, rate=0.5)
+    assert not torch.equal(a, b)
+    assert torch.equal(a, kd.dropout(x, seed=1, rate=0.5))
+    # Seeds differing only in their high word give other masks too.
+    assert not torch.equal(a, kd.dropout(x, seed=1 + (1 << 32), rate=0.5))
+
+
+def test_batch_shared_mask_is_constant_over_the_batch():
+    x = torch.ones(3, 16, 8, 8).contiguous(memory_format=torch.channels_last)
+    shared = kd.dropout(x, seed=9, rate=RATE, batch_shared=True)
+    assert torch.equal(shared[0], shared[1]) and torch.equal(shared[0], shared[2])
+    per_sample = kd.dropout(x, seed=9, rate=RATE)
+    assert not torch.equal(per_sample[0], per_sample[1])
+    # The shared mask is the per-sample mask of the first image.
+    assert torch.equal(shared[0], per_sample[0])
+
+
+def test_stream_index_runs_in_memory_order_with_offsets():
+    """Element i of x in memory order uses stream index offset + i, so a
+    channels_last tensor takes its mask in NHWC order, and one draw over
+    several levels equals the per-level draws at their offsets."""
+    x = torch.ones(1, 8, 4, 4)
+    nhwc = kd.dropout(x.permute(0, 2, 3, 1).contiguous(), seed=4, rate=RATE)
+    cl = kd.dropout(x.contiguous(memory_format=torch.channels_last), seed=4, rate=RATE)
+    assert cl.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(cl.permute(0, 2, 3, 1), nhwc)
+    flat = kd.dropout(torch.ones(1, 8 * 16 + 8 * 4), seed=4, rate=RATE)
+    a = kd.dropout(torch.ones(1, 8 * 16), seed=4, rate=RATE)
+    b = kd.dropout(torch.ones(1, 8 * 4), seed=4, rate=RATE, offset=8 * 16)
+    assert torch.equal(flat, torch.cat([a, b], dim=1))
+
+
+def test_fused_relu_is_relu_then_dropout():
+    x = torch.randn(2, 16, 4, 4)
+    fused = kd.dropout(x, seed=5, rate=RATE, relu=True)
+    two_step = kd.dropout(torch.relu(x), seed=5, rate=RATE)
+    assert torch.equal(fused, two_step)
+    assert (fused >= 0).all()
+
+
+def test_bf16_scale_is_rounded_to_the_dtype():
+    assert kd.keep_scale(0.3, torch.bfloat16) == float(torch.tensor(1 / 0.7, dtype=torch.bfloat16))
+    assert kd.keep_scale(0.2, torch.float32) == 1.25
+    x = torch.randn(1, 64, dtype=torch.bfloat16)
+    out = kd.dropout(x, seed=1, rate=0.3)
+    kept = out != 0
+    scale = torch.tensor(kd.keep_scale(0.3, torch.bfloat16), dtype=torch.bfloat16)
+    assert torch.equal(out[kept], (x * scale)[kept])
+
+
+def test_keep_threshold_law():
+    assert kd.keep_threshold(0.2) == math.floor(0.8 * 2 ** 32)
+    assert kd.keep_threshold(0.0) == 2 ** 32 - 1
+    assert kd.keep_threshold(1.0) == 0
+
+
+@pytest.mark.parametrize(
+    "make, error",
+    [
+        (lambda: torch.ones(2, 8, dtype=torch.float16), TypeError),
+        (lambda: torch.ones(2, 7), ValueError),
+        (lambda: torch.ones(4, 8).t(), ValueError),
+        (lambda: torch.ones(0, 8), ValueError),
+    ],
+)
+def test_wrapper_rejects_what_the_kernel_cannot_take(make, error):
+    with pytest.raises(error):
+        kd.dropout(make(), seed=0, rate=RATE)
+
+
+def test_offset_must_be_word_aligned_and_no_other_device():
+    with pytest.raises(ValueError):
+        kd.dropout(torch.ones(2, 8), seed=0, rate=RATE, offset=2)
+    with pytest.raises(ValueError):
+        kd.dropout(torch.ones(2, 8, device="meta"), seed=0, rate=RATE)
+    with pytest.raises(ValueError):
+        kd.dropout_cuda(torch.ones(2, 8), seed=0, rate=RATE)
+
+
+def test_plain_path_counts_no_launch():
+    before = kd.LAUNCHES
+    kd.dropout(torch.ones(2, 8), seed=0, rate=RATE)
+    assert kd.LAUNCHES == before
+
+
+def test_kernel_masks_apply_like_the_jax_mc_bank():
+    """Given the same keep mask, the port's output equals JAX's
+    premultiplied scale mask (`tower_dropout_masks(..., dtype=f32)`) applied
+    with `apply_mask`: relu(x) * mask, bit for bit."""
+    shapes = [(8, 8, 256), (4, 4, 256)]
+    jax_masks = tower_dropout_masks(jax.random.PRNGKey(0), shapes, RATE, dtype=jnp.float32)
+    rng = np.random.RandomState(0)
+    xs = [rng.randn(2, 256, h, w).astype(np.float32) for (h, w, _) in shapes]
+    for x, m in zip(xs, jax_masks):
+        m = np.asarray(m)
+        assert set(np.unique(m)) <= {0.0, np.float32(1.25)}
+        theirs = np.asarray(apply_mask(jnp.asarray(np.maximum(x, 0)).transpose(0, 2, 3, 1),
+                                       jnp.asarray(m), RATE))
+        keep = torch.from_numpy(m != 0)
+        ours = kd.apply_keep(torch.from_numpy(x).permute(0, 2, 3, 1), keep, RATE, relu=True)
+        np.testing.assert_array_equal(ours.numpy(), theirs)
+
+
+def test_kernel_dropout_draws_one_mask_per_tower_layer_over_all_levels():
+    feats = [torch.ones(2, 16, 4, 4).contiguous(memory_format=torch.channels_last),
+             torch.ones(2, 16, 2, 2).contiguous(memory_format=torch.channels_last)]
+    offsets = level_offsets(feats, batch_shared=True)
+    assert offsets == [0, 16 * 16]
+    td = KernelDropout([[11, 12], [13, 14]], RATE, offsets, batch_shared=True)
+    lvl0, lvl1 = td(feats[0], 1, 0, 0), td(feats[1], 1, 0, 1)
+    whole = kd.dropout(torch.ones(1, 16 * 16 + 16 * 4), seed=13, rate=RATE)
+    joined = torch.cat([lvl0[0].permute(1, 2, 0).reshape(-1), lvl1[0].permute(1, 2, 0).reshape(-1)])
+    assert torch.equal(joined, whole[0])
