@@ -4,8 +4,10 @@
 // (`_dropout_kernel`, launched by `_run_dropout`, public `hardware_dropout`).
 // The TPU kernel draws its bits from the chip's PRNG seeded per (1024, C)
 // row block. Hopper has no such generator, so the bits here come from
-// Philox4x32-10 keyed on (seed, element index): any launch, the backward of
-// a later training slice included, can replay a mask from its seed alone.
+// Philox4x32-10 keyed on (seed, element index): any launch can replay a mask
+// from its seed alone. The backward (`pod_dropout_backward`, the port of
+// `_hw_dropout_bwd`) does exactly that on the cotangent, so no mask is ever
+// stored.
 //
 //   idx   = offset + (batch_shared ? i % inner : i)
 //   bits  = Philox4x32-10(key = seed, counter = idx / 4)[idx % 4]
@@ -13,7 +15,12 @@
 //   out   = keep ? x·scale : 0             (scale = 1/keep in x's dtype)
 //
 // With relu, x is replaced by (x > 0 ? x : 0) first: the head's ReLU and
-// its dropout in one read and one write.
+// its dropout in one read and one write. The backward of that is
+//
+//   dx    = keep && (!relu || out > 0) ? g·scale : 0
+//
+// where out, the forward's output, is kept by autograd anyway as the next
+// conv's input.
 //
 // Bound: memory. It reads x once and writes out once; for one
 // (run, tower, layer) of the MC bank at batch 2 in bf16 the P3-P7 levels
@@ -21,6 +28,9 @@
 // 3.35 TB/s. The design reads and writes 16 bytes a thread per access and,
 // in the batch-shared case, draws each mask word once and applies it to
 // every image of the batch, which divides the Philox work by the batch.
+// The backward reads g and out and writes dx: three passes where the
+// forward makes two, ~27 us for a per-sample P3 level of a training step
+// (4 x 256 x 92 x 160 in bf16, 30.1 MB each).
 //
 // The wrapper (ops/kernels/dropout.py) guarantees: inner % 8 == 0,
 // offset % 4 == 0, both pointers 16-byte aligned, x and out not aliased.
@@ -91,6 +101,19 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
   reinterpret_cast<uint4*>(p)[0] = raw;
 }
 
+// Keep decisions of the chunk of 8 consecutive stream indices starting at
+// offset + 8c: two Philox blocks of four words.
+__device__ __forceinline__ void keep8(uint64_t offset, int64_t c, uint2 key, uint32_t thresh,
+                                      bool* keep) {
+  const uint64_t q = (offset >> 2) + 2 * (uint64_t)c;
+  const uint4 r0 = philox4x32_10(make_uint4((uint32_t)q, (uint32_t)(q >> 32), 0u, 0u), key);
+  const uint4 r1 =
+      philox4x32_10(make_uint4((uint32_t)(q + 1), (uint32_t)((q + 1) >> 32), 0u, 0u), key);
+  const uint32_t bits[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) keep[k] = bits[k] < thresh;
+}
+
 // One thread per chunk of 8 consecutive elements of the inner range, in a
 // grid-stride loop; the chunk's mask applies to all `outer` copies.
 template <typename T>
@@ -100,14 +123,8 @@ __global__ void dropout_kernel(const T* __restrict__ x, T* __restrict__ out,
   const int64_t chunks = inner / 8;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < chunks; c += stride) {
-    const uint64_t q = (offset >> 2) + 2 * (uint64_t)c;
-    const uint4 r0 = philox4x32_10(make_uint4((uint32_t)q, (uint32_t)(q >> 32), 0u, 0u), key);
-    const uint4 r1 = philox4x32_10(
-        make_uint4((uint32_t)(q + 1), (uint32_t)((q + 1) >> 32), 0u, 0u), key);
-    const uint32_t bits[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
     bool keep[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) keep[k] = bits[k] < thresh;
+    keep8(offset, c, key, thresh, keep);
     for (int64_t n = 0; n < outer; ++n) {
       const int64_t base = n * inner + 8 * c;
       float v[8];
@@ -117,6 +134,40 @@ __global__ void dropout_kernel(const T* __restrict__ x, T* __restrict__ out,
       store8(out + base, v);
     }
   }
+}
+
+// The backward: the same chunks and the same mask, replayed from the seed,
+// on the cotangent g. With relu, `gate` is the forward's output, positive
+// exactly where the forward kept a positive input; no mask is stored.
+template <typename T>
+__global__ void dropout_backward_kernel(const T* __restrict__ g, const T* __restrict__ gate,
+                                        T* __restrict__ out, int64_t inner, int64_t outer,
+                                        uint64_t offset, uint2 key, uint32_t thresh,
+                                        float scale, int relu) {
+  const int64_t chunks = inner / 8;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < chunks; c += stride) {
+    bool keep[8];
+    keep8(offset, c, key, thresh, keep);
+    for (int64_t n = 0; n < outer; ++n) {
+      const int64_t base = n * inner + 8 * c;
+      float v[8], y[8];
+      load8(g + base, v);
+      if (relu) load8(gate + base, y);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] = (keep[k] && (!relu || y[k] > 0.f)) ? v[k] * scale : 0.f;
+      }
+      store8(out + base, v);
+    }
+  }
+}
+
+int grid_for(int64_t inner, int threads) {
+  const int64_t chunks = inner / 8;
+  const int64_t max_blocks = 132 * 32;
+  const int64_t want = (chunks + threads - 1) / threads;
+  return (int)(want < max_blocks ? want : max_blocks);
 }
 
 }  // namespace
@@ -133,11 +184,7 @@ extern "C" int pod_dropout_forward(const void* x, void* out, int dtype, long lon
   }
   const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
   const int threads = 256;
-  const int64_t chunks = inner / 8;
-  const int64_t max_blocks = 132 * 32;
-  const int blocks = (int)((chunks + threads - 1) / threads < max_blocks
-                               ? (chunks + threads - 1) / threads
-                               : max_blocks);
+  const int blocks = grid_for(inner, threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     dropout_kernel<float><<<blocks, threads, 0, s>>>(
@@ -147,6 +194,35 @@ extern "C" int pod_dropout_forward(const void* x, void* out, int dtype, long lon
     dropout_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), inner, outer,
         offset, key, thresh, scale, relu);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The backward of pod_dropout_forward under the same (seed, offset, thresh,
+// scale, relu): out = keep && (!relu || gate > 0) ? g * scale : 0, where
+// gate is the forward's output. Same layout contract as the forward.
+extern "C" int pod_dropout_backward(const void* g, const void* gate, void* out, int dtype,
+                                    long long inner, long long outer, unsigned long long offset,
+                                    unsigned long long seed, unsigned int thresh, float scale,
+                                    int relu, void* stream) {
+  if (inner <= 0 || outer <= 0 || inner % 8 != 0 || offset % 4 != 0 ||
+      (relu && gate == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  const int threads = 256;
+  const int blocks = grid_for(inner, threads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    dropout_backward_kernel<float><<<blocks, threads, 0, s>>>(
+        static_cast<const float*>(g), static_cast<const float*>(gate), static_cast<float*>(out),
+        inner, outer, offset, key, thresh, scale, relu);
+  } else if (dtype == 1) {
+    dropout_backward_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(gate),
+        static_cast<__nv_bfloat16*>(out), inner, outer, offset, key, thresh, scale, relu);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -32,19 +32,9 @@ from pod_compare_tpu_torch.models import (
     build_model,
     level_offsets,
 )
+from pod_compare_tpu_torch.utils.device import resolve_device
 
 _SEED_HIGH = 2 ** 63 - 1
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device` as given, else CUDA; raises when CUDA is absent."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain PyTorch path"
-        )
-    return torch.device("cuda")
 
 
 def _draw_seeds(generator: torch.Generator, shape) -> torch.Tensor:

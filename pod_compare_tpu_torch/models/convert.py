@@ -26,7 +26,7 @@ _NORM_MAP = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "
 
 
 def _tensor(value, transpose: bool = False) -> torch.Tensor:
-    a = np.asarray(value, np.float32)
+    a = np.array(value, np.float32)
     if transpose:
         a = np.transpose(a, (3, 2, 0, 1))  # HWIO -> OIHW
     return torch.from_numpy(np.ascontiguousarray(a))
@@ -102,4 +102,32 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         if top not in converters:
             raise KeyError(f"Unrecognized top-level module {top}")
         converters[top](out, tree)
+    return out
+
+
+def from_reference_state_dict(state: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of this package from a reference (detectron2) checkpoint:
+    a full model in the ``backbone.*``/``head.*`` namespace or a bare
+    backbone (``stem.*``, ``res{S}.*``). Head tower indices are renumbered
+    by order of appearance, since the reference's Sequential also counts
+    its ReLU and Dropout modules; config-level constants are dropped.
+    Like the JAX package's ``convert_torch_state_dict``, unknown keys raise."""
+    out: Dict[str, torch.Tensor] = {}
+    towers: Dict[str, Dict[int, int]] = {"cls": {}, "bbox": {}}
+    for key, value in state.items():
+        if key in ("pixel_mean", "pixel_std") or key.startswith("anchor_generator"):
+            continue
+        if re.match(r"(stem|res\d)\.", key):
+            key = "backbone.bottom_up." + key
+        m = re.match(r"head\.(cls|bbox)_subnet\.(\d+)\.(weight|bias)$", key)
+        if m:
+            table = towers[m.group(1)]
+            index = table.setdefault(int(m.group(2)), len(table))
+            key = f"head.{m.group(1)}_subnet.{2 * index}.{m.group(3)}"
+        elif not re.match(
+            r"(backbone\.(bottom_up\.|fpn_|top_block\.)|head\.(cls_score|bbox_pred|cls_var|"
+            r"bbox_cov)\.)", key
+        ):
+            raise KeyError(f"Unrecognized reference checkpoint key: {key}")
+        out[key] = torch.as_tensor(np.asarray(value, np.float32))
     return out

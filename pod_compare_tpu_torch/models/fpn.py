@@ -13,6 +13,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from pod_compare_tpu_torch.models.layers import Conv2d
 from pod_compare_tpu_torch.models.resnet import ResNet
 
 FPN_STRIDES = {"p3": 8, "p4": 16, "p5": 32, "p6": 64, "p7": 128}
@@ -27,8 +28,8 @@ def _upsample_nearest_2x(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 class LastLevelP6P7(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
-        self.p6 = nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
-        self.p7 = nn.Conv2d(out_channels, out_channels, 3, stride=2, padding=1)
+        self.p6 = Conv2d(in_channels, out_channels, 3, stride=2, padding=1)
+        self.p7 = Conv2d(out_channels, out_channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         p6 = self.p6(x)
@@ -50,9 +51,9 @@ class FPN(nn.Module):
         channels = ResNet.output_channels()
         for f in self.in_features:
             lvl = f[-1]
-            self.add_module(f"fpn_lateral{lvl}", nn.Conv2d(channels[f], out_channels, 1))
+            self.add_module(f"fpn_lateral{lvl}", Conv2d(channels[f], out_channels, 1))
             self.add_module(
-                f"fpn_output{lvl}", nn.Conv2d(out_channels, out_channels, 3, padding=1)
+                f"fpn_output{lvl}", Conv2d(out_channels, out_channels, 3, padding=1)
             )
         self.top_block = LastLevelP6P7(channels[self.in_features[-1]], out_channels)
 

@@ -33,12 +33,18 @@ class FrozenBatchNorm2d(nn.Module):
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d with an optional `norm` submodule applied after it (the
-    detectron2 layout: `<name>.weight`, `<name>.norm.*`)."""
+    detectron2 layout: `<name>.weight`, `<name>.norm.*`).
+
+    The convolution computes in the input's dtype: float32 weights are cast
+    to it in `forward`, as flax's `dtype=bfloat16, param_dtype=float32`
+    convs do, so training keeps float32 parameters under bfloat16 compute.
+    """
 
     def __init__(self, *args, norm: Optional[nn.Module] = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.norm = norm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        x = F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
         return self.norm(x) if self.norm is not None else x

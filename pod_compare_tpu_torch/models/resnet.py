@@ -2,7 +2,9 @@
 
 Counterpart of ``pod_compare_tpu/models/resnet.py``; parameter names follow
 detectron2's ``build_resnet_backbone`` (``stem.conv1``, ``res{2..5}.{i}``).
-Inference only: FREEZE_AT has nothing to freeze here.
+``freeze_at`` freezes the stem (>= 1) and res2..res{freeze_at} through
+``requires_grad=False``, where the JAX package stops gradients at the stage
+boundary; FrozenBN tensors are buffers and never train.
 """
 
 from typing import Dict, Sequence
@@ -70,6 +72,7 @@ class ResNet(nn.Module):
         stem_channels: int = 64,
         res2_out_channels: int = 256,
         stride_in_1x1: bool = True,
+        freeze_at: int = 0,
     ):
         super().__init__()
         self.out_features = tuple(out_features)
@@ -87,6 +90,9 @@ class ResNet(nn.Module):
             self.stage_names.append(name)
             cout *= 2
             cmid *= 2
+        frozen = ["stem"] * (freeze_at >= 1) + self.stage_names[: max(freeze_at - 1, 0)]
+        for name in frozen:
+            getattr(self, name).requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.stem(x)

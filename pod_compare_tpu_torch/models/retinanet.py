@@ -10,11 +10,18 @@ reference's detectron2 namespace (``backbone.bottom_up.*``,
 Dropout in the towers comes from outside, as a ``TowerDropout``: one object
 per stochastic head pass, called after each tower conv with the raw conv
 output and returning ReLU-then-dropout of it. ``KernelDropout`` draws the
-masks with the counter-based dropout kernel; ``InjectedMasks`` multiplies by
-given masks (the tests feed the JAX package the same masks). Without one,
-the towers apply a plain ReLU.
+masks with the counter-based dropout kernel (differentiable, its backward
+replaying the masks from their seeds, when autograd records the pass);
+``InjectedMasks`` multiplies by given masks (the tests feed the JAX package
+the same masks). Without one, the towers apply a plain ReLU.
+
+Parameters are float32; the convolutions compute in the model's
+``compute_dtype`` (``layers.Conv2d`` casts its weight to the activations'
+dtype). ``init_weights`` draws a fresh model from a generator, with the
+head initialised as the JAX package initialises it.
 """
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -22,9 +29,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from pod_compare_tpu_torch.models.fpn import FPN, FPN_STRIDES
+from pod_compare_tpu_torch.models.layers import Conv2d
 from pod_compare_tpu_torch.models.resnet import ResNet
 from pod_compare_tpu_torch.ops.anchors import AnchorGenerator
-from pod_compare_tpu_torch.ops.kernels.dropout import dropout
+from pod_compare_tpu_torch.ops.kernels.dropout import dropout, dropout_autograd
 
 TOWERS = ("cls_subnet", "bbox_subnet")
 
@@ -43,7 +51,9 @@ class KernelDropout(TowerDropout):
     `seeds[tower][layer]` seeds one mask draw per (tower, layer) that covers
     every FPN level: level l uses the stream indices that follow those of
     levels < l (`level_offsets`). With `batch_shared` the mask of each level
-    is one (H, W, C) pattern broadcast over the batch.
+    is one (H, W, C) pattern broadcast over the batch. When autograd records
+    the pass, the dropout is differentiable and its backward replays the
+    mask from the seed.
     """
 
     def __init__(self, seeds, rate: float, level_offsets: Sequence[int], batch_shared: bool):
@@ -53,7 +63,8 @@ class KernelDropout(TowerDropout):
         self.batch_shared = batch_shared
 
     def __call__(self, x, tower, layer, level):
-        return dropout(
+        fn = dropout_autograd if torch.is_grad_enabled() and x.requires_grad else dropout
+        return fn(
             x, int(self.seeds[tower][layer]), self.rate,
             batch_shared=self.batch_shared, offset=self.level_offsets[level], relu=True,
         )
@@ -82,8 +93,8 @@ def level_offsets(features: Sequence[torch.Tensor], batch_shared: bool) -> List[
     return offsets
 
 
-def _conv3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1)
+def _conv3(cin: int, cout: int) -> Conv2d:
+    return Conv2d(cin, cout, 3, padding=1)
 
 
 class ProbabilisticRetinaNetHead(nn.Module):
@@ -99,8 +110,10 @@ class ProbabilisticRetinaNetHead(nn.Module):
         compute_cls_var: bool = False,
         compute_bbox_cov: bool = False,
         bbox_cov_dims: int = 4,
+        prior_prob: float = 0.01,
     ):
         super().__init__()
+        self.prior_prob = prior_prob
         self.num_classes = num_classes
         self.num_anchors = num_anchors
         self.num_convs = num_convs
@@ -116,6 +129,22 @@ class ProbabilisticRetinaNetHead(nn.Module):
         self.bbox_cov = (
             _conv3(channels, num_anchors * bbox_cov_dims) if compute_bbox_cov else None
         )
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX head's initialisation (``ProbabilisticRetinaNetHead.setup``):
+        tower and output weights N(0, 0.01), zero biases, except the class
+        logits' bias -log((1 - p)/p), the class log-variances' bias -10 and
+        the box covariance weights N(0, 1e-4)."""
+        for conv in self._convs(0) + self._convs(1) + [self.cls_score, self.bbox_pred]:
+            conv.weight.data.normal_(0.0, 0.01, generator=generator)
+            conv.bias.data.zero_()
+        self.cls_score.bias.data.fill_(-math.log((1.0 - self.prior_prob) / self.prior_prob))
+        if self.cls_var is not None:
+            self.cls_var.weight.data.normal_(0.0, 0.01, generator=generator)
+            self.cls_var.bias.data.fill_(-10.0)
+        if self.bbox_cov is not None:
+            self.bbox_cov.weight.data.normal_(0.0, 1e-4, generator=generator)
+            self.bbox_cov.bias.data.zero_()
 
     def _convs(self, tower: int) -> List[nn.Conv2d]:
         return list(getattr(self, TOWERS[tower]))[0::2]
@@ -177,18 +206,40 @@ class ProbabilisticRetinaNet(nn.Module):
         pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0),
         in_features: Sequence[str] = ("p3", "p4", "p5", "p6", "p7"),
         compute_dtype: torch.dtype = torch.float32,
+        prior_prob: float = 0.01,
+        freeze_at: int = 0,
     ):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.in_features = tuple(in_features)
         self.compute_dtype = compute_dtype
-        self.backbone = FPN(ResNet(depth=depth), out_channels=fpn_channels)
+        self.backbone = FPN(ResNet(depth=depth, freeze_at=freeze_at), out_channels=fpn_channels)
         self.head = ProbabilisticRetinaNetHead(
             num_classes, num_anchors, num_convs, fpn_channels,
-            compute_cls_var, compute_bbox_cov, bbox_cov_dims,
+            compute_cls_var, compute_bbox_cov, bbox_cov_dims, prior_prob,
         )
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std), persistent=False)
+
+    def init_weights(self, generator: torch.Generator) -> "ProbabilisticRetinaNet":
+        """Fresh weights from `generator` (call before moving the model, so
+        that the draw does not depend on the device): detectron2's fills for
+        the backbone (MSRA normal, fan out, for the ResNet; uniform, fan in,
+        for the FPN), identity FrozenBN, and the JAX head's initialisation."""
+        for name, m in self.backbone.named_modules():
+            if not isinstance(m, nn.Conv2d):
+                continue
+            fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
+            fan_in = m.weight[0].numel()
+            if name.startswith("bottom_up."):
+                m.weight.data.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+            else:
+                bound = math.sqrt(3.0 / fan_in)
+                m.weight.data.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.data.zero_()
+        self.head.init_weights(generator)
+        return self
 
     def cast_convs(self) -> "ProbabilisticRetinaNet":
         """Cast conv weights to the compute dtype; FrozenBN stays float32."""
@@ -210,6 +261,18 @@ class ProbabilisticRetinaNet(nn.Module):
     def forward(self, images: torch.Tensor, tower_dropout: Optional[TowerDropout] = None):
         """Raw anchorwise outputs of one head pass."""
         return self.head(self.backbone_features(images), tower_dropout)
+
+    def forward_train(self, images: torch.Tensor, seeds, batch_shared: bool = False):
+        """One training pass: dropout after every tower conv through the
+        kernel, one mask draw per (tower, layer) from `seeds[tower][layer]`,
+        per sample unless `batch_shared`."""
+        features = self.backbone_features(images)
+        tower_dropout = None
+        if self.dropout_rate > 0.0:
+            tower_dropout = KernelDropout(
+                seeds, self.dropout_rate, level_offsets(features, batch_shared), batch_shared
+            )
+        return self.head(features, tower_dropout)
 
 
 def build_model(cfg) -> ProbabilisticRetinaNet:
@@ -234,6 +297,8 @@ def build_model(cfg) -> ProbabilisticRetinaNet:
         compute_dtype=(
             torch.bfloat16 if cfg.PARALLEL.COMPUTE_DTYPE == "bfloat16" else torch.float32
         ),
+        prior_prob=cfg.MODEL.RETINANET.PRIOR_PROB,
+        freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
     )
 
 

@@ -4,7 +4,8 @@ Each source has a plain C interface that returns ``cudaError_t``; nothing
 includes PyTorch's headers, so a build takes seconds. The shared library
 goes to ``build/`` at the repository root, named by a hash of the source and
 the flags, and is rebuilt only when that hash changes. Nothing here runs at
-import time: the first launch builds.
+import time: the first launch builds, or ``build_all`` builds every stale
+source at once, one nvcc process each.
 """
 
 import ctypes
@@ -14,7 +15,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict
+from typing import Dict, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -22,8 +23,9 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+SOURCES = ("dropout.cu", "focal.cu")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -49,21 +51,39 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}-{digest}.so")
 
 
+def build_all(sources: Sequence[str]) -> Dict[str, str]:
+    """Compile every source of `sources` whose library is not current, one
+    nvcc process each, all started together; returns the ptxas report
+    (registers, spills) of each source built, keyed by source."""
+    jobs = {}
+    for source in sources:
+        out = library_path(source)
+        if os.path.isfile(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs[source] = (proc, tmp, out, cmd)
+    reports, errors = {}, []
+    for source, (proc, tmp, out, cmd) in jobs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+            reports[source] = stdout + stderr
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return reports
+
+
 def build(source: str) -> str:
     """Compile csrc/`source` unless its library is current; returns the path."""
-    out = library_path(source)
-    if os.path.isfile(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    build_all([source])
+    return library_path(source)
 
 
 def load(source: str) -> ctypes.CDLL:

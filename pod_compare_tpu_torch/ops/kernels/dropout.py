@@ -14,11 +14,20 @@ to x's dtype, as the JAX MC bank's premultiplied scale masks are
 (``tower_dropout_masks(..., dtype=...)`` + ``apply_mask``). ``relu=True``
 applies ``x > 0 ? x : 0`` first.
 
-``dropout`` sends a CPU tensor to the plain version and a CUDA tensor to
-the kernel; anything else raises. ``LAUNCHES`` counts kernel launches.
+The backward replays the mask from the same (seed, offset) on the
+cotangent, as ``_hw_dropout_bwd`` does: ``dx = keep && (!relu || out > 0) ?
+g·scale : 0`` with ``out`` the forward's output, so no mask is stored. The
+cotangent is brought to the forward's memory format first, since the
+stream index follows memory order.
+
+``dropout`` and ``dropout_backward`` send CPU tensors to the plain version
+and CUDA tensors to the kernel; anything else raises. ``dropout_autograd``
+is the differentiable form. ``LAUNCHES`` counts kernel launches, forward
+and backward alike.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -114,6 +123,31 @@ def dropout_plain(
     return _restore_order(apply_keep(flat, keep, rate, relu), x)
 
 
+def memory_format(x: torch.Tensor) -> torch.memory_format:
+    """channels_last when x's memory order is NHWC, else contiguous_format."""
+    return torch.channels_last if _memory_order(x) is not x else torch.contiguous_format
+
+
+def dropout_backward_plain(
+    g: torch.Tensor,
+    out: torch.Tensor,
+    seed: int,
+    rate: float,
+    batch_shared: bool = False,
+    offset: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """The backward kernel's function in PyTorch ops: the gradient of
+    `dropout(x, ...)` for the cotangent g, given the forward's output."""
+    g = g.contiguous(memory_format=memory_format(out))
+    outer, inner = _layout(g, batch_shared, offset)
+    keep = keep_mask(inner, offset, seed, rate, g.device)
+    flat_g = _memory_order(g).reshape(outer, inner)
+    if relu:
+        keep = keep & (_memory_order(out).reshape(outer, inner) > 0)
+    return _restore_order(apply_keep(flat_g, keep, rate), g)
+
+
 # ------------------------------------------------------------ kernel
 def _layout(x: torch.Tensor, batch_shared: bool, offset: int):
     """(outer, inner) of the launch; raises on what the kernel does not take."""
@@ -133,18 +167,35 @@ def _layout(x: torch.Tensor, batch_shared: bool, offset: int):
     return outer, inner
 
 
+@functools.lru_cache(maxsize=None)
 def _library():
     from pod_compare_tpu_torch.ops.kernels import _build
 
     lib = _build.load("dropout.cu")
-    fn = lib.pod_dropout_forward
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_uint,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    common = [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_ulonglong,
+        ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.pod_dropout_forward.argtypes = [ctypes.c_void_p] * 2 + common
+    lib.pod_dropout_backward.argtypes = [ctypes.c_void_p] * 3 + common
+    lib.pod_dropout_forward.restype = lib.pod_dropout_backward.restype = ctypes.c_int
+    return lib
+
+
+def _launch(fn, pointers, x, outer, inner, offset, seed, rate, relu) -> None:
+    """Launch `fn` on x's device and PyTorch's current stream."""
+    global LAUNCHES
+    if any(p % 16 for p in pointers):
+        raise ValueError("dropout needs 16-byte aligned storage")
+    with torch.cuda.device(x.device):
+        err = fn(
+            *pointers, _DTYPE_CODES[x.dtype], inner, outer, offset,
+            seed & 0xFFFFFFFFFFFFFFFF, keep_threshold(rate), keep_scale(rate, x.dtype),
+            int(relu), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dropout kernel launch failed with cudaError_t {err}")
+    LAUNCHES += 1
 
 
 def dropout_cuda(
@@ -155,25 +206,38 @@ def dropout_cuda(
     offset: int = 0,
     relu: bool = False,
 ) -> torch.Tensor:
-    """Launch csrc/dropout.cu on x's device and PyTorch's current stream."""
-    global LAUNCHES
+    """Launch the forward of csrc/dropout.cu."""
     if x.device.type != "cuda":
         raise ValueError(f"dropout_cuda needs a CUDA tensor, got {x.device}")
     outer, inner = _layout(x, batch_shared, offset)
     out = torch.empty_like(x)
-    if x.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("dropout needs 16-byte aligned storage")
-    fn = _library()
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], inner, outer, offset,
-            seed & 0xFFFFFFFFFFFFFFFF, keep_threshold(rate), keep_scale(rate, x.dtype),
-            int(relu), torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"dropout kernel launch failed with cudaError_t {err}")
-    LAUNCHES += 1
+    _launch(_library().pod_dropout_forward, (x.data_ptr(), out.data_ptr()), x, outer, inner,
+            offset, seed, rate, relu)
     return out
+
+
+def dropout_backward_cuda(
+    g: torch.Tensor,
+    out: torch.Tensor,
+    seed: int,
+    rate: float,
+    batch_shared: bool = False,
+    offset: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """Launch the backward of csrc/dropout.cu on the cotangent g, brought to
+    the memory format of the forward's output `out`."""
+    if g.device.type != "cuda" or out.device != g.device:
+        raise ValueError(f"dropout_backward_cuda needs CUDA tensors, got {g.device}, {out.device}")
+    if out.shape != g.shape or out.dtype != g.dtype:
+        raise ValueError("dropout_backward needs the cotangent and the forward's output alike")
+    g = g.contiguous(memory_format=memory_format(out))
+    outer, inner = _layout(g, batch_shared, offset)
+    _layout(out, batch_shared, offset)
+    dx = torch.empty_like(g)
+    _launch(_library().pod_dropout_backward, (g.data_ptr(), out.data_ptr(), dx.data_ptr()), g,
+            outer, inner, offset, seed, rate, relu)
+    return dx
 
 
 def dropout(
@@ -191,3 +255,48 @@ def dropout(
     if x.device.type == "cuda":
         return dropout_cuda(x, seed, rate, batch_shared, offset, relu)
     raise ValueError(f"dropout has no path for device {x.device}")
+
+
+def dropout_backward(
+    g: torch.Tensor,
+    out: torch.Tensor,
+    seed: int,
+    rate: float,
+    batch_shared: bool = False,
+    offset: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """The gradient of `dropout(x, seed, rate, ...)` for the cotangent g,
+    given the forward's output `out`: the plain version for CPU tensors, the
+    CUDA kernel for CUDA tensors."""
+    if g.device.type == "cpu":
+        return dropout_backward_plain(g, out, seed, rate, batch_shared, offset, relu)
+    if g.device.type == "cuda":
+        return dropout_backward_cuda(g, out, seed, rate, batch_shared, offset, relu)
+    raise ValueError(f"dropout_backward has no path for device {g.device}")
+
+
+class _Dropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seed, rate, batch_shared, offset, relu):
+        out = dropout(x, seed, rate, batch_shared, offset, relu)
+        ctx.save_for_backward(out)
+        ctx.args = (seed, rate, batch_shared, offset, relu)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return dropout_backward(g, out, *ctx.args), None, None, None, None, None
+
+
+def dropout_autograd(
+    x: torch.Tensor,
+    seed: int,
+    rate: float,
+    batch_shared: bool = False,
+    offset: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """`dropout` with a backward that replays the mask from the seed."""
+    return _Dropout.apply(x, seed, rate, batch_shared, offset, relu)

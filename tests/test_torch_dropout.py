@@ -185,3 +185,68 @@ def test_kernel_dropout_draws_one_mask_per_tower_layer_over_all_levels():
     whole = kd.dropout(torch.ones(1, 16 * 16 + 16 * 4), seed=13, rate=RATE)
     joined = torch.cat([lvl0[0].permute(1, 2, 0).reshape(-1), lvl1[0].permute(1, 2, 0).reshape(-1)])
     assert torch.equal(joined, whole[0])
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("cotangent", ["channels_last", "nchw"])
+def test_autograd_gradient_is_keep_scale_g_where_x_positive(shared, cotangent):
+    """The backward replays the forward's mask from the seed on the
+    cotangent: dx = keep·scale·g·(x > 0). The stream follows memory order,
+    so an NCHW-contiguous cotangent is brought to the forward's
+    channels_last order first; its mask must land on the same elements."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, 4, 6, generator=gen).contiguous(memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    args = dict(batch_shared=shared, offset=64, relu=True)
+    y = kd.dropout_autograd(x, 7, RATE, **args)
+    g = torch.randn(2, 16, 4, 6, generator=gen)
+    if cotangent == "channels_last":
+        g = g.contiguous(memory_format=torch.channels_last)
+    else:
+        assert g.is_contiguous() and not g.is_contiguous(memory_format=torch.channels_last)
+    y.backward(g)
+    ones = torch.ones_like(x).contiguous(memory_format=torch.channels_last)
+    keep = kd.dropout(ones, 7, RATE, batch_shared=shared, offset=64) != 0
+    expect = keep * kd.keep_scale(RATE, x.dtype) * g * (x > 0)
+    assert torch.equal(x.grad, expect)
+    assert x.grad.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_autograd_without_relu_and_in_bf16():
+    x = torch.randn(1, 8, 4, 4).to(torch.bfloat16).requires_grad_(True)
+    y = kd.dropout_autograd(x, 3, 0.3)
+    y.backward(torch.ones_like(y))
+    keep = kd.dropout(torch.ones_like(x), 3, 0.3) != 0
+    scale = torch.tensor(kd.keep_scale(0.3, torch.bfloat16), dtype=torch.bfloat16)
+    assert torch.equal(x.grad, torch.where(keep, scale, torch.zeros_like(scale)))
+    # Without the fused ReLU the gate is not read: negative kept inputs pass.
+    assert bool(((x < 0) & keep & (x.grad != 0)).any())
+
+
+def test_backward_plain_replays_the_mask_like_the_forward():
+    x = torch.randn(2, 8, 2, 4).contiguous(memory_format=torch.channels_last)
+    out = kd.dropout(x, 11, RATE, offset=8, relu=True)
+    g = torch.ones_like(x)
+    dx = kd.dropout_backward(g, out, 11, RATE, offset=8, relu=True)
+    assert torch.equal(dx != 0, out > 0)
+    assert torch.equal(dx, kd.dropout_backward_plain(g.contiguous(), out, 11, RATE, offset=8,
+                                                      relu=True))
+    with pytest.raises(ValueError):
+        kd.dropout_backward(g.to("meta"), out, 11, RATE)
+    with pytest.raises(ValueError):
+        kd.dropout_backward_cuda(g, out, 11, RATE)
+
+
+def test_kernel_dropout_is_differentiable_only_under_autograd():
+    """KernelDropout takes the autograd form when the pass is recorded and
+    the forward-only call otherwise (the MC bank), with the same output."""
+    feats = torch.randn(2, 16, 4, 4).contiguous(memory_format=torch.channels_last)
+    td = KernelDropout([[1, 2], [3, 4]], RATE, [0], batch_shared=False)
+    with torch.no_grad():
+        plain = td(feats, 0, 1, 0)
+    leaf = feats.clone().requires_grad_(True)
+    recorded = td(leaf, 0, 1, 0)
+    assert recorded.grad_fn is not None and plain.grad_fn is None
+    assert torch.equal(recorded.detach(), plain)
+    recorded.sum().backward()
+    assert torch.equal(leaf.grad != 0, plain > 0)
