@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check what comes out.
 
-    python chip_smoke.py [--seed N]
+    python chip_smoke.py [--seed N] [--profile] [--parent DIR]
 
 Phases, each printing its seconds on its own line as it ends:
   1. device: the card's name and power limit (nvidia-smi); build both CUDA
@@ -20,12 +20,16 @@ Phases, each printing its seconds on its own line as it ends:
      of 10 calls), img/s and peak device memory.
   4. reference: the same predictor at a small size in float32 on the GPU
      against its plain PyTorch path on the CPU, same weights, same masks.
-  5. focal kernel: the stochastic focal kernel against its plain version at
-     the training path's shape (4, 176580, 7), S = 10 and S = 3: every plane
+  5. focal kernel: what ptxas reported of each instance of the stochastic
+     focal kernel (registers; no stack, no spills) and, where cuobjdump is
+     found, the SASS instructions and MUFU operations per element of the
+     main path's instance; the kernel against its plain version at the
+     training path's shape (4, 176580, 7), S = 10 and S = 3: every plane
      finite and within 1e-5 of its scale; kernel time (CUDA-graph replay,
      L2-cold), its bound (the largest of bytes, instruction issue and MUFU
-     work), the plain version's time, and the 'threefry' sample bank's for
-     context.
+     work, counted from the function), the plain version's time, and the
+     'threefry' sample bank's for context. With --parent DIR, the focal
+     kernel of the checkout in DIR too, timed in turns with this one.
   6. dropout backward: the dropout kernel's forward and its seed-replay
      backward against their plain versions at the P3 shape of a training
      step, bf16 and f32, per-sample and batch-shared masks, channels_last
@@ -51,9 +55,13 @@ without either, and on any failed check.
 """
 
 import argparse
+import ctypes
+import importlib.util
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -95,18 +103,22 @@ MUFU_PER_S = 132 * 16 * 1.98e9
 TRAIN_BATCH = 4
 TRAIN_P3_SHAPE = (TRAIN_BATCH, 256, CANVAS[0] // 8, CANVAS[1] // 8)
 NUM_CLASSES = 7
-# Operations of the focal kernel (csrc/focal.cu), counted from its source,
-# each add, multiply, FMA, compare, select, shift, logical op, conversion or
-# transcendental as one instruction and each transcendental also as one MUFU
-# operation (the least a fast-math version could take; the precise ones take
-# more). Per element: the block key (4), clamp, std and its exp (4), gate (3),
-# alpha_t and 2t-1 (4), the three outputs (5): 20, of which 1 MUFU. Per pair
-# of draws: two hashes (18) and uniforms (8), the take test (1), Box-Muller
-# (log, sqrt, cos, sin and 4 more): 35, of which 4 MUFU. Per draw: the
-# sampled logit (1), sigmoid (exp, add, reciprocal), cross-entropy (max, FMA,
-# exp, log1p, add), the focal loss (4) and its derivative (8), the three
-# accumulations (3): 24, of which 4 MUFU.
-FOCAL_OPS = {"element": (20, 1), "pair": (35, 4), "draw": (24, 4)}
+# The least work of the stochastic focal function (csrc/focal.cu), fixed to
+# the function and not to any implementation of it: each add, multiply, FMA,
+# compare, select, shift, logical op, conversion or transcendental as one
+# instruction, each transcendental also as one MUFU operation. Per element:
+# the block key (4), clamp, halve and exp for std (4), gate (3), alpha_t and
+# -(2t-1)alpha_t (5), the three outputs (8): 24, of which 1 MUFU. Per pair of
+# draws: two hashes with their keys (18), two uniforms (shift, convert, FMA:
+# 6), log, -2x and sqrt (3), theta, sin and cos (3), the two normals (2): 32,
+# of which 4 MUFU. Per draw: the sampled logit (2), exp(-|y|) (2), 1 + e and
+# its reciprocal (2), e/(1+e) (1), the sigmoid's select (2), the
+# cross-entropy (max, FMA, log, FMA: 4), t - p and its square (2), gamma
+# p(1-p) (2), the derivative's FMA and multiply (2), the three accumulations
+# (3): 22, of which 3 MUFU. At S = 10: 404 instructions and 51 MUFU per
+# element.
+FOCAL_OPS = {"element": (24, 1), "pair": (32, 4), "draw": (22, 3)}
+FOCAL_MAIN = "focal_kernelILi10ELb1ELb1E"  # focal_kernel<10, true, true>, the main path's
 MAX_GATE_FLIPS = 1e-5  # share of tower gates the GPU and CPU may disagree on
 RESNET_BLOCKS = {"res2": 3, "res3": 4, "res4": 6, "res5": 3}
 
@@ -483,10 +495,127 @@ def focal_inputs(seed: int, shape, copies: int = 1):
     return out
 
 
-def check_focal_kernel(seed: int, card: str, num_anchors: int):
+def ptxas_instances(report: str, kernel: str):
+    """{mangled name: {registers, stack_bytes, spill_stores, spill_loads}} of
+    each instance of `kernel` in a ptxas report."""
+    found, name = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1) if kernel in entry.group(1) else None
+            continue
+        used = re.search(r"Used (\d+) registers", line)
+        stack = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if name and used:
+            found.setdefault(name, {})["registers"] = int(used.group(1))
+        if name and stack:
+            found.setdefault(name, {}).update(zip(
+                ("stack_bytes", "spill_stores", "spill_loads"), map(int, stack.groups())))
+    return found
+
+
+def template_name(mangled: str) -> str:
+    """focal_kernel<10, 1, 1> from a mangled name holding focal_kernelILi10ELb1ELb1E."""
+    args = re.search(r"focal_kernelI(.*?)EEv", mangled).group(1)
+    return "focal_kernel<" + ", ".join(re.findall(r"L[ib](\d+)E", args + "E")) + ">"
+
+
+def cuobjdump_path():
+    """cuobjdump from PATH, beside nvcc, or in Triton's package; None if none."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    beside = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if os.path.isfile(beside):
+        return beside
+    try:
+        import triton
+    except ImportError:
+        return None
+    bundled = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                           "cuobjdump")
+    return bundled if os.path.isfile(bundled) else None
+
+
+def sass_counts(library: str, function: str):
+    """Static SASS of the first function whose name holds `function`:
+    (instructions, MUFU) of the whole function and of its loop with the most
+    MUFU (the body between a backward branch and its target); None without
+    cuobjdump."""
+    tool = cuobjdump_path()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    body = sass.split("Function : ")
+    text = next(part for part in body[1:] if function in part.splitlines()[0])
+    code = [(int(a, 16), ins) for a, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", text)]
+    mufu = lambda lo, hi: sum("MUFU" in ins for a, ins in code if lo <= a <= hi)
+    size = lambda lo, hi: sum(lo <= a <= hi for a, _ in code)
+    loops = []
+    for addr, ins in code:
+        m = re.search(r"BRA\s+0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            loops.append((mufu(int(m.group(1), 16), addr), size(int(m.group(1), 16), addr)))
+    loop = max(loops) if loops else (0, 0)
+    return {"instructions": len(code), "mufu": mufu(0, code[-1][0]),
+            "loop_instructions": loop[1], "loop_mufu": loop[0]}
+
+
+def parent_library(parent: str, source: str) -> ctypes.CDLL:
+    """csrc/`source` of the checkout at `parent` (another commit's), built
+    into that checkout's build/ and loaded by its own `_build`: any kernel
+    phase can time that commit's kernel in turns with this one's."""
+    path = os.path.join(os.path.abspath(parent), "pod_compare_tpu_torch", "ops", "kernels",
+                        "_build.py")
+    spec = importlib.util.spec_from_file_location("parent_build", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.load(source)
+
+
+def launch_focal(fn, x, s, t, seed: int, num_samples: int, outs) -> None:
+    """One launch of a pod_focal_forward from another build (the parent's)."""
+    err = fn(x.data_ptr(), s.data_ptr(), t.data_ptr(), *(o.data_ptr() for o in outs), x.numel(),
+             kfocal._int32(seed), num_samples, 0.25, 2.0, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"parent focal kernel launch failed with cudaError_t {err}")
+
+
+def parent_focal(parent: str):
+    """The focal kernel of the checkout at `parent`, bound like this one's."""
+    fn = parent_library(parent, "focal.cu").pod_focal_forward
+    fn.argtypes, fn.restype = kfocal._library().argtypes, ctypes.c_int
+    return fn
+
+
+def check_focal_kernel(seed: int, card: str, num_anchors: int, parent=None):
     """Phase 5. Returns the numbers of S = 10, the main path's."""
     shape = (TRAIN_BATCH, num_anchors, NUM_CLASSES)
     n = math.prod(shape)
+    ptxas = ptxas_instances(_build.ptxas_report("focal.cu"), "focal_kernel")
+    for name, info in sorted(ptxas.items()):
+        log(f"focal ptxas {template_name(name)}: {info.get('registers')} registers, "
+            f"{info.get('stack_bytes')} bytes stack, {info.get('spill_stores')} bytes spill "
+            f"stores, {info.get('spill_loads')} bytes spill loads")
+    main_ptxas = next((info for name, info in ptxas.items() if FOCAL_MAIN in name), None)
+    if main_ptxas is None:
+        raise AssertionError(f"ptxas reported no {FOCAL_MAIN} (the main path's instance)")
+    for name, info in ptxas.items():
+        if len(info) != 4 or info["stack_bytes"] or info["spill_stores"] or info["spill_loads"]:
+            raise AssertionError(f"{template_name(name)}: stack or spills, or no report: {info}")
+    sass = sass_counts(_build.library_path("focal.cu"), FOCAL_MAIN)
+    if sass is None:
+        log("focal SASS: cuobjdump not found, SASS not counted")
+    else:
+        sass["per_element"] = sass["loop_instructions"] / 4
+        sass["mufu_per_element"] = sass["loop_mufu"] / 4
+        log(f"focal SASS of focal_kernel<10, gamma 2, 16-byte>: {sass['instructions']} "
+            f"instructions, {sass['mufu']} MUFU; its loop over four elements "
+            f"{sass['loop_instructions']} instructions, {sass['loop_mufu']} MUFU: "
+            f"{sass['per_element']:g} and {sass['mufu_per_element']:g} per element")
+    parent_fn = parent_focal(parent) if parent else None
     main = None
     for num_samples in (10, 3):
         (x, s, t), = focal_inputs(seed, shape)
@@ -504,7 +633,8 @@ def check_focal_kernel(seed: int, card: str, num_anchors: int):
         # Three inputs and three outputs of 19.8 MB each: every launch
         # already streams more than the 50 MB L2; two input sets alternate.
         sets = focal_inputs(seed + 1, shape, copies=2)
-        ms = graph_ms([lambda a=a: kfocal.focal_cuda(*a, seed, num_samples) for a in sets], 20)
+        kernel = [lambda a=a: kfocal.focal_cuda(*a, seed, num_samples) for a in sets]
+        ms = graph_ms(kernel, 20)
         plain_ms = graph_ms([lambda a=a: kfocal.focal_plain(*a, seed, num_samples)
                              for a in sets], 2)
         valid = torch.ones(shape[:2], dtype=torch.bool, device="cuda")
@@ -527,12 +657,28 @@ def check_focal_kernel(seed: int, card: str, num_anchors: int):
             f"{k} {v:.3e}" for k, v in errs.items()) + f"; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, threefry bank fwd+bwd {threefry_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms (bytes {bytes_bound:.4f}, instruction issue {issue_bound:.4f} "
-            f"for {instructions} instructions, MUFU {mufu_bound:.4f} for {mufu}) ({card})")
+            f"for {instructions} instructions, MUFU {mufu_bound:.4f} for {mufu}), "
+            f"{100 * bound_ms / ms:.1f}% of the bound ({card})")
+        turns = None
+        if parent_fn is not None:
+            outs = [tuple(torch.empty_like(x) for _ in range(3)) for _ in sets]
+            old = [lambda a=a, o=o: launch_focal(parent_fn, *a, seed, num_samples, o)
+                   for a, o in zip(sets, outs)]
+            launch_focal(parent_fn, x, s, t, seed + 11, num_samples, outs[0])
+            parent_err = max(float((a - b).abs().max()) for a, b in zip(outs[0], p))
+            turns = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                turns[who].append(graph_ms(old if who == "parent" else kernel, 20))
+            log(f"focal S={num_samples}: in turns (parent, this, this, parent) the parent's "
+                f"kernel {turns['parent'][0]:.4f}/{turns['parent'][1]:.4f} ms, this kernel "
+                f"{turns['this'][0]:.4f}/{turns['this'][1]:.4f} ms; the parent's max abs err vs "
+                f"plain {parent_err:.3e} ({card})")
         if num_samples == 10:
             main = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bytes_bound_ms=bytes_bound,
                         issue_bound_ms=issue_bound, mufu_bound_ms=mufu_bound,
-                        threefry_ms=threefry_ms, shape=list(shape))
+                        threefry_ms=threefry_ms, shape=list(shape), ptxas=main_ptxas,
+                        sass=sass, in_turns_ms=turns)
     return main
 
 
@@ -805,6 +951,9 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also trace one full-width call and one train step with "
                              "torch.profiler")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="a checkout of another commit (the parent's): its focal kernel "
+                             "is built and timed in turns with this one in phase 5")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -847,7 +996,7 @@ def main() -> int:
     cfg = merge_configs(TRAIN_CFG, "")
     num_anchors = build_anchor_generator(cfg).concatenated(CANVAS).shape[0]
     t0 = time.perf_counter()
-    k2 = check_focal_kernel(args.seed, card, num_anchors)
+    k2 = check_focal_kernel(args.seed, card, num_anchors, args.parent)
     phase("focal kernel", t0)
 
     t0 = time.perf_counter()
@@ -907,6 +1056,9 @@ def main() -> int:
         "issue_bound_ms": k2["issue_bound_ms"],
         "mufu_bound_ms": k2["mufu_bound_ms"],
         "threefry_bank_ms": k2["threefry_ms"],
+        "ptxas": k2["ptxas"],
+        "sass": k2["sass"],
+        "in_turns_ms": k2["in_turns_ms"],
         "shape": k2["shape"],
         "num_samples": 10,
         "dtype": "float32",

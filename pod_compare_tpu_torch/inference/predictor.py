@@ -56,6 +56,9 @@ class ProbabilisticPredictor:
     """
 
     def __init__(self, cfg, image_size: Sequence[int], state_dict, device=None):
+        head_quant = cfg.PROBABILISTIC_INFERENCE.HEAD_QUANT
+        if head_quant != "none":
+            raise NotImplementedError(f"HEAD_QUANT={head_quant!r} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":

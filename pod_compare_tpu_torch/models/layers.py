@@ -38,6 +38,13 @@ class Conv2d(nn.Conv2d):
     The convolution computes in the input's dtype: float32 weights are cast
     to it in `forward`, as flax's `dtype=bfloat16, param_dtype=float32`
     convs do, so training keeps float32 parameters under bfloat16 compute.
+
+    On the CPU a bfloat16 convolution runs in float32 on the bfloat16 values
+    and rounds its output (and, through the casts, its gradients) to
+    bfloat16 once, as XLA's CPU backend does: PyTorch's own bfloat16 CPU
+    convolution returns uninitialised values in the weight gradient of taps
+    that see only padding (a 3x3 conv on a 1x1 input, as P6 and P7 are at
+    small sizes).
     """
 
     def __init__(self, *args, norm: Optional[nn.Module] = None, **kwargs):
@@ -45,6 +52,11 @@ class Conv2d(nn.Conv2d):
         self.norm = norm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        x = F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            bias = None if bias is None else bias.float()
+            x = F.conv2d(x.float(), weight.float(), bias, self.stride, self.padding).to(x.dtype)
+        else:
+            x = F.conv2d(x, weight, bias, self.stride, self.padding)
         return self.norm(x) if self.norm is not None else x

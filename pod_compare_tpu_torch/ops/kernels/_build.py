@@ -5,7 +5,9 @@ includes PyTorch's headers, so a build takes seconds. The shared library
 goes to ``build/`` at the repository root, named by a hash of the source and
 the flags, and is rebuilt only when that hash changes. Nothing here runs at
 import time: the first launch builds, or ``build_all`` builds every stale
-source at once, one nvcc process each.
+source at once, one nvcc process each. What ptxas reports of a build
+(registers, stack, spills) is kept beside its library; a library without
+that report counts as stale.
 """
 
 import ctypes
@@ -54,11 +56,11 @@ def library_path(source: str) -> str:
 def build_all(sources: Sequence[str]) -> Dict[str, str]:
     """Compile every source of `sources` whose library is not current, one
     nvcc process each, all started together; returns the ptxas report
-    (registers, spills) of each source built, keyed by source."""
+    (registers, stack, spills) of each source built, keyed by source."""
     jobs = {}
     for source in sources:
         out = library_path(source)
-        if os.path.isfile(out):
+        if os.path.isfile(out) and os.path.isfile(out + ".ptxas"):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -73,11 +75,21 @@ def build_all(sources: Sequence[str]) -> Dict[str, str]:
             os.unlink(tmp)
             errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stderr}")
         else:
-            os.replace(tmp, out)
             reports[source] = stdout + stderr
+            with open(out + ".ptxas", "w") as f:
+                f.write(reports[source])
+            os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return reports
+
+
+def ptxas_report(source: str) -> str:
+    """What ptxas reported when csrc/`source`'s current library was built;
+    builds it first if it is not current."""
+    build_all([source])
+    with open(library_path(source) + ".ptxas") as f:
+        return f.read()
 
 
 def build(source: str) -> str:

@@ -248,6 +248,16 @@ def test_mc_bank_masks_shared_or_per_image(slice_setup, shared):
     assert not torch.equal(run_deltas[0], run_deltas[1])
 
 
+def test_predictor_refuses_the_unported_int8_head():
+    """HEAD_QUANT int8 builds the JAX package's int8 head; the port has none
+    yet, so its predictor raises instead of running the float head."""
+    cfg = merge_configs(TRAIN_CFG, INFER_CFG, OVERRIDES + [
+        "PROBABILISTIC_INFERENCE.HEAD_QUANT", "int8"])
+    state_dict = build_model(merge_configs(TRAIN_CFG, INFER_CFG, OVERRIDES)).state_dict()
+    with pytest.raises(NotImplementedError, match="HEAD_QUANT"):
+        build_predictor(cfg, IMAGE_SIZE, state_dict, device="cpu")
+
+
 def test_single_model_standard_nms_matches_jax(slice_setup):
     """The single-model path (no MC bank, standard NMS with deferred
     covariances) against the JAX predictor."""

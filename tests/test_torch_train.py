@@ -177,10 +177,10 @@ def _port_state(params, cfg=None):
     return cfg, state
 
 
-def _port_step(setup, tower_dropout=None):
+def _port_step(setup, tower_dropout=None, cfg=None):
     """The port's losses and gradients of one step with injected masks."""
     _, params, batch, masks = setup
-    cfg, state = _port_state(params)
+    cfg, state = _port_state(params, cfg)
     state.step = STEP
     anchors = torch.as_tensor(build_anchor_generator(cfg).concatenated(IMAGE_SIZE))
     step = make_train_step(cfg, anchors)
