@@ -48,6 +48,20 @@ Phases, each printing its seconds on its own line as it ends:
      devices): losses and every gradient within 1e-3 of each tensor's
      scale, and at most 1e-5 of the CPU's own gates differing from the
      GPU's. The same step with the CPU's own gates is printed beside it.
+  9. eval: apply_net's main, as `python -m pod_compare_tpu_torch.cli.apply_net`
+     runs it, on 32 synthetic PNGs at BDD's 720x1280 (1-30 boxes, 7 classes)
+     laid out as bdd_val under --dataset-dir, with the seeded, tempered
+     weights saved as the checkpoint it loads: the loader (PNG decode, resize
+     to 750x1333 on a 768x1344 canvas), the flagship predictor at batch 2 in
+     bf16, the json and the metric suite. An entry for every image,
+     cls_prob and a PD bbox_covar on every detection, 400 dropout launches a
+     batch, the native and numpy COCO engines equal, mAP and the metrics
+     finite (NaN, the reference's None, only where nothing matched); then the
+     ground truth with seeded jitter and covariances, scored the same way,
+     every metric finite and AP50 above 0.5. Loader-fed img/s, evaluation
+     seconds, host decode and resize ms per image, peak device memory; then
+     the loader alone (img/s) and the predictor alone on its first batch
+     (ms/batch), to split the loader-fed time.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 
 It needs a CUDA device and the repository around it; it exits non-zero
@@ -65,12 +79,27 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
-from pod_compare_tpu_torch.config import merge_configs
+from pod_compare_tpu_torch import native
+from pod_compare_tpu_torch.cli.apply_net import main as apply_net_main
+from pod_compare_tpu_torch.config import merge_configs, setup_arg_parser
+from pod_compare_tpu_torch.data import TestLoader, get_dataset
+from pod_compare_tpu_torch.data.image_io import imread_bgr, resize_bilinear
+from pod_compare_tpu_torch.data.synthetic import generate_synthetic_dataset, synthetic_detections
+from pod_compare_tpu_torch.evaluation.average_precision import (
+    DEFAULT_CAT_IDS,
+    evaluate_average_precision,
+)
+from pod_compare_tpu_torch.evaluation.calibration_errors import evaluate_calibration_errors
+from pod_compare_tpu_torch.evaluation.coco_eval import COCOEvaluator
+from pod_compare_tpu_torch.evaluation.probabilistic_metrics import (
+    evaluate_probabilistic_metrics,
+)
 from pod_compare_tpu_torch.inference import build_predictor, detections_to_json
 from pod_compare_tpu_torch.models import (
     KernelDropout,
@@ -85,6 +114,7 @@ from pod_compare_tpu_torch.ops.kernels import _build
 from pod_compare_tpu_torch.ops.kernels import dropout as kdropout
 from pod_compare_tpu_torch.ops.kernels import focal as kfocal
 from pod_compare_tpu_torch.train import RandomBatches, Trainer
+from pod_compare_tpu_torch.train.checkpoint import Checkpointer, load_params
 from pod_compare_tpu_torch.train.trainer import batch_to_device
 
 TRAIN_CFG = "BDD-Detection/retinanet/retinanet_R_50_FPN_1x_reg_cls_var_dropout.yaml"
@@ -92,6 +122,8 @@ INFER_CFG = "Inference/bayes_od_mc_dropout.yaml"
 CANVAS = (736, 1280)  # BDD 720x1280 padded to a multiple of 32
 BATCH = 2
 P3_SHAPE = (BATCH, 256, CANVAS[0] // 8, CANVAS[1] // 8)
+EVAL_CANVAS = (768, 1344)  # 720x1280 resized to 750x1333 (MIN 800, MAX 1333), padded to /32
+EVAL_P3_SHAPE = (BATCH, 256, EVAL_CANVAS[0] // 8, EVAL_CANVAS[1] // 8)
 IMAGE_SIZES = np.array([[720, 1280]] * BATCH, np.float32)  # (h, w) before padding
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # H100 SXM at its 1.98 GHz boost clock (NVIDIA data sheet): 132 SMs issue 128
@@ -266,7 +298,8 @@ def canvases(seed: int, size, batch: int) -> np.ndarray:
 # ------------------------------------------------------------ phases
 def check_kernel(seed: int, card: str):
     """Phase 2. Returns the numbers of the bf16 batch-shared case, the one
-    the main path launches."""
+    the main paths launch, at the slice's P3 and (under "eval") at
+    apply_net's."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rate = 0.2
     main = None
@@ -313,10 +346,49 @@ def check_kernel(seed: int, card: str):
             if dtype == torch.bfloat16 and shared:
                 main = dict(max_abs_err=err, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, torch_dropout_ms=torch_ms)
-    levels = [(-(-CANVAS[0] // s), -(-CANVAS[1] // s)) for s in (8, 16, 32, 64, 128)]
-    elems = sum(h * w for h, w in levels) * 256 * BATCH
-    log(f"kernel bound for one (run, tower, layer) over P3-P7 in bf16: {elems} elements, "
-        f"{2 * elems * 2 / HBM_BYTES_PER_S * 1e3:.4f} ms ({card})")
+    # The case inference launches (bf16, batch-shared, ReLU fused) at every
+    # FPN level of both canvases, each level at its offset in one draw over
+    # P3-P7 as KernelDropout gives it: the slice's 736x1280 and apply_net's
+    # 768x1344.
+    args = dict(seed=seed * 7919 + 17, rate=rate, batch_shared=True)
+    for canvas in (CANVAS, EVAL_CANVAS):
+        levels = [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in (8, 16, 32, 64, 128)]
+        offset = 0
+        for h, w in levels:
+            x = torch.randn((BATCH, 256, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+            x = x.contiguous(memory_format=torch.channels_last)
+            k = kdropout.dropout_cuda(x, relu=True, offset=offset, **args)
+            p = kdropout.dropout_plain(x, relu=True, offset=offset, **args)
+            if not torch.equal(k.view(torch.int16), p.view(torch.int16)):
+                raise AssertionError(f"kernel != plain at {tuple(x.shape)}, offset {offset}")
+            offset += h * w * 256
+        elems = sum(h * w for h, w in levels) * 256 * BATCH
+        log(f"kernel bf16 shared on the {canvas[0]}x{canvas[1]} canvas: P3-P7 "
+            f"{[(h, w) for h, w in levels]} bit-identical; bound for one (run, tower, layer) "
+            f"over P3-P7: {elems} elements, {2 * elems * 2 / HBM_BYTES_PER_S * 1e3:.4f} ms ({card})")
+
+    # apply_net's P3 timed as the slice's is above.
+    x = torch.randn(EVAL_P3_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    x_bytes = x.numel() * x.element_size()
+    args["offset"] = 0
+    err = float((kdropout.dropout_cuda(x, relu=True, **args).float()
+                 - kdropout.dropout_plain(x, relu=True, **args).float()).abs().max())
+    copies = [x.clone() for _ in range(max(2, -(-120_000_000 // x_bytes)))]
+    main["eval"] = dict(
+        shape=list(EVAL_P3_SHAPE), max_abs_err=err,
+        ms=graph_ms([lambda c=c: kdropout.dropout_cuda(c, relu=True, **args) for c in copies], 100),
+        plain_ms=graph_ms(
+            [lambda c=c: kdropout.dropout_plain(c, relu=True, **args) for c in copies], 10),
+        torch_dropout_ms=graph_ms(
+            [lambda c=c: torch.nn.functional.dropout(c, rate) for c in copies], 100),
+        bound_ms=2 * x_bytes / HBM_BYTES_PER_S * 1e3)
+    e = main["eval"]
+    log(f"kernel bf16 shared at {EVAL_P3_SHAPE}: max abs err {err}, kernel {e['ms']:.4f} ms "
+        f"L2-cold, plain {e['plain_ms']:.4f} ms, F.dropout {e['torch_dropout_ms']:.4f} ms, "
+        f"bound {e['bound_ms']:.4f} ms ({card})")
+    if err != 0.0:
+        raise AssertionError(f"kernel != plain at {EVAL_P3_SHAPE}: {err}")
     return main
 
 
@@ -945,6 +1017,176 @@ def check_train_against_cpu(seed: int, card: str, work: str) -> None:
         f"({flips} of {n_gates} differ from the GPU's) {own_worst:.3e} and {own_loss:.3e} ({card})")
 
 
+# ------------------------------------------------------------ evaluation phase
+EVAL_IMAGES = 32
+EVAL_SIZE = (720, 1280)  # BDD100k's frames
+
+
+def write_bdd_layout(root: str, seed: int):
+    """The synthetic dataset at BDD's geometry (1-30 boxes per image, 7
+    classes), laid out as --dataset-dir expects bdd_val: labels/ and
+    images/100k/val. Returns the ground truth's path."""
+    json_file, image_dir = generate_synthetic_dataset(
+        root, "val", num_images=EVAL_IMAGES, image_size=EVAL_SIZE, num_classes=NUM_CLASSES,
+        max_objects=30, seed=seed)
+    os.makedirs(os.path.join(root, "labels"))
+    os.makedirs(os.path.join(root, "images", "100k"))
+    gt_file = os.path.join(root, "labels", "val_coco_format.json")
+    os.replace(json_file, gt_file)
+    os.replace(image_dir, os.path.join(root, "images", "100k", "val"))
+    return gt_file
+
+
+def check_metrics(name: str, summary: dict, finite_only: bool) -> None:
+    """mAP and every metric of the suite finite; with `finite_only` False a
+    metric may be NaN (the reference's None) where its partition is empty."""
+    values = {"mAP": summary["mAP"], "AP50": summary["AP50"],
+              **{f"nll.{k}": v for k, v in summary["probabilistic_metrics"].items()},
+              **{f"calibration.{k}": v for k, v in summary["calibration_errors"].items()}}
+    for key, value in values.items():
+        if math.isinf(value) or (finite_only and not math.isfinite(value)):
+            raise AssertionError(f"{name}: {key} = {value}")
+    for key in ("mAP", "AP50", "calibration.cls_marginal_calibration_error"):
+        if not math.isfinite(values[key]):
+            raise AssertionError(f"{name}: {key} = {values[key]}")
+
+
+def engines_agree(gt: dict, records: list, name: str) -> np.ndarray:
+    """The native and the numpy COCO engines give the same stats."""
+    native_stats = COCOEvaluator(gt, records, cat_ids=DEFAULT_CAT_IDS).run(verbose=False)
+    numpy_stats = COCOEvaluator(gt, records, cat_ids=DEFAULT_CAT_IDS).run(
+        verbose=False, use_native=False)
+    if not np.allclose(native_stats, numpy_stats, rtol=0, atol=1e-12):
+        raise AssertionError(f"{name}: native {native_stats} != numpy {numpy_stats}")
+    return native_stats
+
+
+def run_eval(seed: int, card: str, work: str):
+    """Phase 9: apply_net's main on the card, from PNGs on disk through the
+    loader and the flagship predictor to the json and the metric suite, and
+    the metric suite on the ground truth with seeded jitter."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "bdd")
+    gt_file = write_bdd_layout(root, seed)
+    with open(gt_file) as f:
+        gt = json.load(f)
+    write_s = time.perf_counter() - t0
+    names = sorted(os.listdir(os.path.join(root, "images", "100k", "val")))[:8]
+    decode_ms, resize_ms = [], []
+    for name in names:
+        t = time.perf_counter()
+        img = imread_bgr(os.path.join(root, "images", "100k", "val", name))
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        resize_bilinear(img, (1333, 750))
+        resize_ms.append((time.perf_counter() - t) * 1e3)
+
+    # The smoke's seeded, tempered weights as the checkpoint apply_net loads.
+    data = os.path.join(work, "data")
+    os.environ["POD_COMPARE_DATA_DIR"] = data
+    argv = ["--config-file", TRAIN_CFG, "--inference-config", INFER_CFG, "--dataset-dir", root,
+            "--test-dataset", "bdd_val", "--random-seed", str(seed)]
+    args = setup_arg_parser().parse_args(argv)
+    cfg = merge_configs(TRAIN_CFG, INFER_CFG)
+    out_dir = os.path.join(data, "BDD-Detection", "retinanet",
+                           os.path.splitext(os.path.basename(TRAIN_CFG))[0], f"random_seed_{seed}")
+    sd = convert.from_jax_params(random_jax_params(seed, NUM_CLASSES))
+    probe = torch.from_numpy(canvases(seed, EVAL_CANVAS, 1))
+    Checkpointer(out_dir).save(0, {"model": temper_head(sd, cfg, probe, "cuda")})
+
+    batches = -(-EVAL_IMAGES // BATCH)
+    per_batch = (int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * 2
+                 * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kdropout.LAUNCHES = 0
+    t = time.perf_counter()
+    summary = apply_net_main(args, batch_size=BATCH)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    launches = kdropout.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches != per_batch * batches:
+        raise AssertionError(f"{launches} dropout launches in apply_net, expected "
+                             f"{per_batch} x {batches} batches")
+
+    # Where the loader-fed time goes: the loader alone, then the predictor
+    # alone on its first batch, already on the card.
+    loader = TestLoader(get_dataset("bdd_val"), batch_size=BATCH, min_size=cfg.INPUT.MIN_SIZE_TEST,
+                        max_size=cfg.INPUT.MAX_SIZE_TEST, num_workers=cfg.DATALOADER.NUM_WORKERS)
+    t = time.perf_counter()
+    host_batches = list(loader)
+    loader_ips = EVAL_IMAGES / (time.perf_counter() - t)
+    loader.close()
+    predictor = build_predictor(cfg, loader.canvas, load_params(out_dir))
+    first = host_batches[0]
+    feed = [torch.from_numpy(first[k]).cuda() for k in ("images", "input_sizes", "output_sizes")]
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        predictor(*feed, generator=torch.Generator().manual_seed(seed + i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    predictor_ms = float(np.median(times[1:]))
+    del predictor
+
+    with open(os.path.join(summary["inference_output_dir"], "coco_instances_results.json")) as f:
+        records = json.load(f)
+    if {r["image_id"] for r in records} != {im["id"] for im in gt["images"]}:
+        raise AssertionError("an image has no entry in coco_instances_results.json")
+    probs = np.array([r["cls_prob"] for r in records])
+    covs = np.array([r["bbox_covar"] for r in records])
+    if probs.shape != (len(records), NUM_CLASSES) or covs.shape != (len(records), 4, 4):
+        raise AssertionError(f"cls_prob {probs.shape} / bbox_covar {covs.shape} malformed")
+    if not (np.isfinite(probs).all() and np.linalg.eigvalsh(covs).min() > 0):
+        raise AssertionError("non-finite class probabilities or a covariance not PD")
+    engines_agree(gt, records, "model json")
+    check_metrics("model json", summary, finite_only=False)
+
+    # The ground truth with seeded jitter and covariances, scored the same
+    # way: every metric a finite number, and not a trivial one.
+    jitter_dir = os.path.join(work, "jittered")
+    os.makedirs(jitter_dir)
+    jittered = synthetic_detections(gt, NUM_CLASSES, seed=seed, false_positives=4)
+    with open(os.path.join(jitter_dir, "coco_instances_results.json"), "w") as f:
+        json.dump(jittered, f)
+    t = time.perf_counter()
+    stats = engines_agree(gt, jittered, "jittered ground truth")
+    ap, threshold = evaluate_average_precision(jitter_dir, "bdd_val", verbose=False)
+    jitter_summary = {
+        "mAP": float(ap[0]), "AP50": float(ap[1]),
+        "probabilistic_metrics": evaluate_probabilistic_metrics(
+            jitter_dir, "bdd_val", "bdd_train", verbose=False),
+        "calibration_errors": evaluate_calibration_errors(
+            jitter_dir, "bdd_val", "bdd_train", verbose=False),
+    }
+    jitter_s = time.perf_counter() - t
+    check_metrics("jittered ground truth", jitter_summary, finite_only=True)
+    if not (stats[1] > 0.5 and jitter_summary["probabilistic_metrics"]["num_true_positives"] > 0):
+        raise AssertionError(f"jittered ground truth scored trivially: AP50 {stats[1]}")
+
+    log(f"eval: wrote {EVAL_IMAGES} PNGs at {EVAL_SIZE[0]}x{EVAL_SIZE[1]} in {write_s:.2f} s; "
+        f"host decode {np.median(decode_ms):.2f} ms/image, resize to 750x1333 "
+        f"{np.median(resize_ms):.2f} ms/image (median of {len(names)}, one thread) ({card})")
+    log(f"eval: apply_net main {main_s:.2f} s: {summary['num_images']} images, "
+        f"{summary['num_detections']} detections, loader-fed "
+        f"{summary['images_per_second']:.2f} img/s at batch {BATCH} on {EVAL_CANVAS[0]}x"
+        f"{EVAL_CANVAS[1]}, evaluation {summary['evaluation_seconds']:.2f} s, {launches} dropout "
+        f"launches ({per_batch} x {batches} batches), peak memory {peak / 2 ** 30:.3f} GiB ({card})")
+    log(f"eval: the loader alone {loader_ips:.2f} img/s ({cfg.DATALOADER.NUM_WORKERS} threads); "
+        f"the predictor alone {predictor_ms:.2f} ms/batch, {BATCH / predictor_ms * 1e3:.2f} img/s "
+        f"(median of 5 after one, {[round(x, 2) for x in times]}) ({card})")
+    log("eval: model json mAP {:.4f} AP50 {:.4f}; ".format(summary["mAP"], summary["AP50"])
+        + ", ".join(f"{k} {v:.4f}" for k, v in {**summary["probabilistic_metrics"],
+                                                  **summary["calibration_errors"]}.items()))
+    log(f"eval: jittered ground truth scored in {jitter_s:.2f} s (both COCO engines): mAP "
+        f"{jitter_summary['mAP']:.4f} AP50 {jitter_summary['AP50']:.4f}, threshold {threshold:.4f}; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in {**jitter_summary["probabilistic_metrics"],
+                                                  **jitter_summary["calibration_errors"]}.items()))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -968,13 +1210,17 @@ def main() -> int:
     t0 = time.perf_counter()
     card = card_line()
     log(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    native_build = threading.Thread(target=native.build)  # g++, beside the nvcc builds
+    native_build.start()
     for source, report in _build.build_all(_build.SOURCES).items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {source}: {line.strip()}")
     for source in _build.SOURCES:
         _build.load(source)
-    phase("device (nvcc of csrc/dropout.cu and csrc/focal.cu, in parallel)", t0)
+    native_build.join()
+    native.load()
+    phase("device (nvcc of csrc/dropout.cu and csrc/focal.cu, g++ of native/, in parallel)", t0)
 
     t0 = time.perf_counter()
     k1 = check_kernel(args.seed, card)
@@ -1016,6 +1262,10 @@ def main() -> int:
         t0 = time.perf_counter()
         check_train_against_cpu(args.seed, card, work)
         phase("train reference", t0)
+
+        t0 = time.perf_counter()
+        eval_launches = run_eval(args.seed, card, work)
+        phase("eval", t0)
     log(f"[total] {time.perf_counter() - t_all:.2f} s ({card})")
 
     kernels = [{
@@ -1040,6 +1290,13 @@ def main() -> int:
         "backward_shape": list(TRAIN_P3_SHAPE),
         "train_launches": train_launches["dropout"],
         "train_launches_per_step": step_launches["dropout"],
+        "eval_launches": eval_launches,
+        "eval_shape": k1["eval"]["shape"],
+        "eval_max_abs_err": k1["eval"]["max_abs_err"],
+        "eval_ms": k1["eval"]["ms"],
+        "eval_plain_ms": k1["eval"]["plain_ms"],
+        "eval_bound_ms": k1["eval"]["bound_ms"],
+        "eval_torch_dropout_ms": k1["eval"]["torch_dropout_ms"],
     }, {
         "name": "stochastic_focal_elem",
         "route": "cuda",

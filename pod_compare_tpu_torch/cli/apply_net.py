@@ -1,0 +1,236 @@
+"""Probabilistic inference and evaluation CLI.
+
+    python -m pod_compare_tpu_torch.cli.apply_net \\
+        --config-file BDD-Detection/retinanet/retinanet_R_50_FPN_1x_reg_cls_var_dropout.yaml \\
+        --inference-config Inference/bayes_od_mc_dropout.yaml \\
+        --test-dataset bdd_val --dataset-dir /path/to/bdd --random-seed 0
+
+Counterpart of ``pod_compare_tpu/cli/apply_net.py``: a COCO-format dataset
+on disk goes through ``TestLoader`` and the predictor on the card, with one
+batch in flight, into ``coco_instances_results.json`` (the JAX CLI's
+schema, with ``cls_prob`` and ``bbox_covar``); then ``mAP_res.txt``, the
+probabilistic metrics and the calibration errors. The weights are the
+latest checkpoint under ``OUTPUT_DIR`` (``train/checkpoint.py``). It runs on
+CUDA unless the caller names a device, and raises without CUDA otherwise.
+
+Not ported yet, and refused with the ROADMAP item that ports it: the
+automatic batch size (C3), PDQ (C2), the profiler (C3), more than one
+process or device (B4), and the inference modes other than
+``standard_nms`` and ``bayes_od`` (A6/A7).
+"""
+
+import json
+import os
+import time
+from shutil import copyfile
+
+import torch
+
+from pod_compare_tpu_torch.config import (
+    configs_dir,
+    inference_output_dir,
+    setup_arg_parser,
+    setup_config,
+)
+from pod_compare_tpu_torch.data.datasets import get_dataset
+from pod_compare_tpu_torch.data.loader import DevicePrefetcher, TestLoader
+from pod_compare_tpu_torch.evaluation.average_precision import evaluate_average_precision
+from pod_compare_tpu_torch.evaluation.calibration_errors import evaluate_calibration_errors
+from pod_compare_tpu_torch.evaluation.category_mapping import model_to_dataset_id_map
+from pod_compare_tpu_torch.evaluation.probabilistic_metrics import (
+    evaluate_probabilistic_metrics,
+)
+from pod_compare_tpu_torch.inference.core import Detections
+from pod_compare_tpu_torch.inference.postprocess import detections_to_json
+from pod_compare_tpu_torch.inference.predictor import build_predictor
+from pod_compare_tpu_torch.train.checkpoint import load_params
+from pod_compare_tpu_torch.utils.device import resolve_device
+from pod_compare_tpu_torch.utils.logging import setup_logger
+
+PORTED_MODES = ("standard_nms", "bayes_od")
+_SEED_HIGH = 2 ** 63 - 1
+
+
+def _refuse_unported(cfg, batch_size, resume, params_list, mesh, profile, run_pdq) -> None:
+    if not resume:
+        raise ValueError("apply_net: resume=False asks for a fresh run, but the weights are "
+                         "always `params` or the latest checkpoint under cfg.OUTPUT_DIR")
+    mode = cfg.PROBABILISTIC_INFERENCE.INFERENCE_MODE
+    refusals = [
+        (batch_size in ("auto", 0, None),
+         "batch_size='auto' (a peak-memory guard, ROADMAP §1 C3)"),
+        (run_pdq, "run_pdq (ROADMAP §1 C2)"),
+        (profile, "profile=True (torch.profiler, ROADMAP §1 C3)"),
+        (params_list is not None or mode not in PORTED_MODES,
+         f"INFERENCE_MODE {mode!r} (ROADMAP §1 A6/A7)"),
+        (mesh is not None or cfg.PARALLEL.NUM_DEVICES not in (-1, 1)
+         or (torch.distributed.is_available() and torch.distributed.is_initialized()
+             and torch.distributed.get_world_size() > 1),
+         "more than one process or device (ROADMAP §1 B4)"),
+    ]
+    for refused, what in refusals:
+        if refused:
+            raise NotImplementedError(f"apply_net: {what} is not ported yet")
+
+
+def run_inference(
+    cfg,
+    test_dataset: str,
+    inference_name: str,
+    batch_size: int = 8,
+    resume: bool = True,
+    run_metrics: bool = True,
+    run_map: bool = True,
+    params=None,
+    params_list=None,
+    verbose: bool = True,
+    mesh=None,
+    profile: bool = False,
+    min_allowed_score=None,
+    loader=None,
+    predictor=None,
+    run_pdq: bool = False,
+    device=None,
+):
+    """Run the full inference + evaluation pipeline; returns a summary dict,
+    the JAX CLI's keys and ``evaluation_seconds``.
+
+    `params` is a state dict in this package's names (default: the latest
+    checkpoint under cfg.OUTPUT_DIR). `loader`/`predictor` may be passed in
+    to reuse built ones; a predictor is called as
+    ``predictor(images, input_sizes, output_sizes, generator=...)``.
+    `device` is where the predictor and the scoring rules run: CUDA unless
+    given. `resume` is there for the JAX CLI's signature and must stay True:
+    there is no fresh run, the weights are `params` or the checkpoint."""
+    _refuse_unported(cfg, batch_size, resume, params_list, mesh, profile, run_pdq)
+    device = resolve_device(device)
+    logger = setup_logger(name="pod_compare_tpu_torch")
+    output_dir = inference_output_dir(cfg, test_dataset, inference_name)
+    os.makedirs(output_dir, exist_ok=True)
+
+    own_loader = loader is None
+    if own_loader:
+        loader = TestLoader(
+            get_dataset(test_dataset),
+            batch_size=batch_size,
+            min_size=cfg.INPUT.MIN_SIZE_TEST,
+            max_size=cfg.INPUT.MAX_SIZE_TEST,
+            divisibility=cfg.INPUT.SIZE_DIVISIBILITY,
+            num_workers=cfg.DATALOADER.NUM_WORKERS,
+            worker_backend=cfg.DATALOADER.WORKER_BACKEND,
+        )
+    if predictor is None:
+        if params is None:
+            params = load_params(cfg.OUTPUT_DIR)
+        predictor = build_predictor(cfg, loader.canvas, params, device=device)
+
+    train_dataset = cfg.DATASETS.TRAIN[0]
+    cat_mapping = model_to_dataset_id_map(train_dataset, test_dataset)
+
+    # One generator draw per batch, as the JAX CLI splits its key per batch.
+    seeds = torch.Generator().manual_seed(max(int(cfg.SEED), 0))
+    results = []
+    num_images = 0
+
+    def drain(pending):
+        """Host-side fetch + COCO-json conversion for one finished batch."""
+        nonlocal num_images
+        dets, batch = pending
+        dets = Detections(*[None if f is None else f.cpu() for f in dets])
+        for b in range(len(batch["batch_valid"])):
+            if not batch["batch_valid"][b]:
+                continue
+            per_image = Detections(*[None if f is None else f[b] for f in dets])
+            results.extend(detections_to_json(per_image, int(batch["image_ids"][b]), cat_mapping))
+            num_images += 1
+
+    # DevicePrefetcher copies batch i+1 to the card on a side stream while
+    # batch i runs; and with one batch in flight, batch i+1's kernels are
+    # queued before batch i is fetched and turned into json on the host.
+    prefetcher = DevicePrefetcher(loader, device) if cfg.DATALOADER.H2D_OVERLAP else None
+    feed = prefetcher if prefetcher is not None else iter(loader)
+    start = time.time()
+    try:
+        pending = None
+        for batch in feed:
+            seed = int(torch.randint(0, _SEED_HIGH, (1,), generator=seeds))
+            dets = predictor(
+                batch["images"], batch["input_sizes"], batch["output_sizes"],
+                generator=torch.Generator().manual_seed(seed),
+            )
+            if pending is not None:
+                drain(pending)
+            pending = (dets, batch)
+        if pending is not None:
+            drain(pending)
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
+        if own_loader:
+            loader.close()
+    elapsed = time.time() - start
+    images_per_second = num_images / max(elapsed, 1e-9)
+    logger.info(f"Inference on {num_images} images in {elapsed:.1f}s "
+                f"({images_per_second:.2f} img/s, {device})")
+
+    with open(os.path.join(output_dir, "coco_instances_results.json"), "w") as f:
+        json.dump(results, f)
+
+    summary = {
+        "num_images": num_images,
+        "num_detections": len(results),
+        "images_per_second": images_per_second,
+        "inference_output_dir": output_dir,
+    }
+    start = time.time()
+    if run_map:
+        stats, threshold = evaluate_average_precision(
+            output_dir, test_dataset, verbose=verbose)
+        summary["mAP"] = float(stats[0])
+        summary["AP50"] = float(stats[1])
+        summary["optimal_score_threshold"] = threshold
+    if run_metrics:
+        # --min-allowed-score overrides the optimal-F1 threshold read from
+        # mAP_res.txt, as in the reference.
+        summary["probabilistic_metrics"] = evaluate_probabilistic_metrics(
+            output_dir, test_dataset, train_dataset,
+            min_allowed_score=min_allowed_score, verbose=verbose, device=device,
+        )
+        summary["calibration_errors"] = evaluate_calibration_errors(
+            output_dir, test_dataset, train_dataset,
+            min_allowed_score=min_allowed_score, verbose=verbose,
+        )
+    summary["evaluation_seconds"] = time.time() - start
+    logger.info(f"Evaluation in {summary['evaluation_seconds']:.1f}s")
+    return summary
+
+
+def main(args, batch_size: int = 8, profile: bool = False, device=None):
+    cfg = setup_config(args, random_seed=args.random_seed, is_testing=True)
+    inference_name = os.path.splitext(os.path.basename(args.inference_config))[0]
+    test_dataset = args.test_dataset or cfg.DATASETS.TEST[0]
+    summary = run_inference(
+        cfg, test_dataset, inference_name, batch_size=batch_size, profile=profile,
+        min_allowed_score=args.min_allowed_score or None,
+        run_pdq=getattr(args, "run_pdq", False), device=device,
+    )
+    # The inference config beside its artifacts, for provenance.
+    src_cfg = args.inference_config
+    if not os.path.isfile(src_cfg):
+        src_cfg = os.path.join(configs_dir(), args.inference_config)
+    if os.path.isfile(src_cfg):
+        copyfile(src_cfg, os.path.join(summary["inference_output_dir"], os.path.basename(src_cfg)))
+    return summary
+
+
+if __name__ == "__main__":
+    parser = setup_arg_parser()
+    parser.add_argument("--batch-size", default="8", help="images per batch")
+    parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--run-pdq", action="store_true", dest="run_pdq")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: CUDA; raises without it)")
+    args = parser.parse_args()
+    print("Command Line Args:", args)
+    batch = args.batch_size if args.batch_size == "auto" else int(args.batch_size)
+    main(args, batch_size=batch, profile=args.profile, device=args.device)

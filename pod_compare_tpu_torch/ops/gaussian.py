@@ -1,10 +1,13 @@
 """Gaussian and covariance primitives in PyTorch.
 
 Counterpart of ``pod_compare_tpu/ops/gaussian.py`` for the functions the
-inference path uses. 4x4 inverses go through Cholesky solves. The Cholesky
-factor comes from ``torch.linalg.cholesky_ex``, which does not check its
-result on the host, so nothing here waits for the device.
+inference path and the scoring rules use. 4x4 inverses go through
+Cholesky solves. The Cholesky factor comes from
+``torch.linalg.cholesky_ex``, which does not check its result on the
+host, so nothing here waits for the device.
 """
+
+import math
 
 import torch
 
@@ -41,3 +44,36 @@ def inv4x4_psd(cov: torch.Tensor) -> torch.Tensor:
     inv_l = torch.linalg.solve_triangular(chol, eye, upper=False)
     return torch.einsum("...ki,...kj->...ij", inv_l, inv_l)
 
+
+
+def _cholesky_or_nan(cov: torch.Tensor) -> torch.Tensor:
+    """Cholesky factor, NaN for a matrix that is not positive definite (as
+    XLA's factor is), without a check that waits for the device."""
+    chol, info = torch.linalg.cholesky_ex(cov)
+    return torch.where((info == 0)[..., None, None], chol, torch.full_like(chol, float("nan")))
+
+
+def _log_det(chol: torch.Tensor) -> torch.Tensor:
+    return 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(dim=-1)
+
+
+def mvn_log_prob(x: torch.Tensor, mean: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:
+    """Multivariate normal log density through a Cholesky factor and a
+    triangular solve, batched over leading axes (JAX
+    ``ops/gaussian.py::mvn_log_prob``)."""
+    k = mean.shape[-1]
+    chol = _cholesky_or_nan(cov)
+    sol = torch.linalg.solve_triangular(chol, (x - mean)[..., None], upper=False)[..., 0]
+    maha = (sol * sol).sum(dim=-1)
+    return -0.5 * (k * math.log(2.0 * math.pi) + _log_det(chol) + maha)
+
+
+def mvn_entropy(cov: torch.Tensor) -> torch.Tensor:
+    """Differential entropy of N(., cov): 0.5 log det(2 pi e cov)."""
+    k = cov.shape[-1]
+    return 0.5 * k * (1.0 + math.log(2.0 * math.pi)) + 0.5 * _log_det(_cholesky_or_nan(cov))
+
+
+def normal_cdf(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """Univariate normal CDF via erf."""
+    return 0.5 * (1.0 + torch.erf((x - mean) / (std * math.sqrt(2.0))))

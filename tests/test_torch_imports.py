@@ -1,7 +1,8 @@
-"""The port stands alone: with jax, flax, optax, yaml, cv2 and the JAX
-package made unimportable, every module of pod_compare_tpu_torch and
-chip_smoke.py imports, and the entry point refuses to run without CUDA
-unless it is given a device."""
+"""The port stands alone: with jax, flax, optax, yaml, cv2, PIL and the
+JAX package made unimportable, every module of pod_compare_tpu_torch and
+chip_smoke.py imports, the data path writes, reads and resizes images and
+the evaluation path scores them, and the entry points refuse to run
+without CUDA unless they are given a device."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ import textwrap
 import pod_compare_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "pod_compare_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "PIL", "pod_compare_tpu")
 
 
 def _port_sources():
@@ -46,6 +47,13 @@ def test_every_module_imports_with_jax_and_its_package_blocked():
         )
     ]
     assert len(modules) >= 20
+    for name in ("cli.apply_net", "config.setup", "data.datasets", "data.image_io",
+                 "data.loader", "data.metadata", "data.synthetic", "evaluation.average_precision",
+                 "evaluation.calibration", "evaluation.calibration_errors",
+                 "evaluation.category_mapping", "evaluation.coco_eval", "evaluation.matching",
+                 "evaluation.probabilistic_metrics", "evaluation.scoring", "native",
+                 "utils.table"):
+        assert f"pod_compare_tpu_torch.{name}" in modules, name
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
 
@@ -80,6 +88,30 @@ def test_every_module_imports_with_jax_and_its_package_blocked():
             assert "CUDA" in str(e)
         else:
             raise AssertionError("build_predictor ran without CUDA and without a device")
+
+        from pod_compare_tpu_torch.cli.apply_net import run_inference
+        try:
+            run_inference(cfg, "synth", "bayes_od_mc_dropout", params={{}})
+        except RuntimeError as e:
+            assert "CUDA" in str(e)
+        else:
+            raise AssertionError("run_inference ran without CUDA and without a device")
+
+        import tempfile
+        from pod_compare_tpu_torch.data import TestLoader, get_dataset
+        from pod_compare_tpu_torch.data.synthetic import register_synthetic, synthetic_detections
+        from pod_compare_tpu_torch.evaluation.coco_eval import COCOEvaluator
+        import json
+        with tempfile.TemporaryDirectory() as root:
+            name = register_synthetic(root, "synth", num_images=3, image_size=(40, 56))
+            loader = TestLoader(get_dataset(name), batch_size=2, min_size=48, max_size=1333)
+            batches = list(loader)
+            loader.close()
+            assert [b["images"].shape for b in batches] == [(2, 64, 96, 3)] * 2
+            with open(get_dataset(name).json_file) as f:
+                gt = json.load(f)
+            stats = COCOEvaluator(gt, synthetic_detections(gt, 3)).run(verbose=False)
+            assert stats[0] > 0
         print("OK")
     """)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)

@@ -22,6 +22,7 @@ frameworks, through 50 layers); the optimizer update within 1e-6 relative.
 """
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -347,7 +348,18 @@ def _assert_states_equal(a, b):
     assert torch.equal(da["generator"], db["generator"])
 
 
-def test_checkpoint_round_trip_and_frozen_stages(tmp_path):
+@pytest.fixture
+def ckpt_path(tmp_path):
+    """`tmp_path`, emptied when the test ends: each checkpoint of the full
+    R50-FPN with its momentum is 278 MB, the two tests below write five, and
+    pytest keeps the temporary directories of its last three runs: left in
+    place, 4.2 GB of the temporary directory."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def test_checkpoint_round_trip_and_frozen_stages(ckpt_path):
+    tmp_path = ckpt_path
     trainer = _trainer(tmp_path, "a", max_iter=2)
     start = {k: v.clone() for k, v in trainer.state.model.state_dict().items()}
     trainer.train(log_period=1)
@@ -371,7 +383,8 @@ def test_checkpoint_round_trip_and_frozen_stages(tmp_path):
     resumed.close()
 
 
-def test_resumed_run_reproduces_an_uninterrupted_run(tmp_path):
+def test_resumed_run_reproduces_an_uninterrupted_run(ckpt_path):
+    tmp_path = ckpt_path
     whole = _trainer(tmp_path, "whole", max_iter=3)
     whole.train(log_period=2)
     first = _trainer(tmp_path, "split", max_iter=2)
