@@ -51,7 +51,7 @@ Phases, each printing its seconds on its own line as it ends:
   9. eval: apply_net's main, as `python -m pod_compare_tpu_torch.cli.apply_net`
      runs it, on 32 synthetic PNGs at BDD's 720x1280 (1-30 boxes, 7 classes)
      laid out as bdd_val under --dataset-dir, with the seeded, tempered
-     weights saved as the checkpoint it loads: the loader (PNG decode, resize
+     weights saved as the checkpoint it loads: the loader (cv2 decode, resize
      to 750x1333 on a 768x1344 canvas), the flagship predictor at batch 2 in
      bf16, the json and the metric suite. An entry for every image,
      cls_prob and a PD bbox_covar on every detection, 400 dropout launches a
@@ -62,6 +62,21 @@ Phases, each printing its seconds on its own line as it ends:
      seconds, host decode and resize ms per image, peak device memory; then
      the loader alone (img/s) and the predictor alone on its first batch
      (ms/batch), to split the loader-fed time.
+ 10. train_net: train_net's main, as `python -m pod_compare_tpu_torch.cli.train_net`
+     runs it, on the flagship training config with the fused focal kernel:
+     48 train and 16 val JPEGs at BDD's 720x1280 (cv2, quality 90; 1-30
+     boxes, 7 classes) in BDD's layout under --dataset-dir, the backbone
+     warm-started from a seeded R-50 written as a detectron2-style .pkl
+     (which must load the same tensors as a .pth of them), batch 4 on
+     736x1280, 20 steps with a checkpoint and Trainer.test every 10; then
+     train_net --resume from the step-10 checkpoint. 80 dropout and 1 focal
+     launches in every step, finite losses, frozen stages equal to the
+     .pkl's, Trainer.test at steps 10 and 20 on 768x1344 from one test
+     loader and one predictor, the resumed run's batches equal to the
+     uninterrupted run's by digest and its first losses within 1e-5 of
+     theirs. Loader-fed ms/step, Trainer.test seconds, peak device memory;
+     TrainLoader alone with threads and with spawned processes (the same
+     batches), and cv2 decode and resize ms per JPEG.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 
 It needs a CUDA device and the repository around it; it exits non-zero
@@ -69,11 +84,14 @@ without either, and on any failed check.
 """
 
 import argparse
+import contextlib
 import ctypes
+import hashlib
 import importlib.util
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -82,14 +100,20 @@ import tempfile
 import threading
 import time
 
+import cv2
 import numpy as np
 import torch
 
 from pod_compare_tpu_torch import native
+from pod_compare_tpu_torch.cli import train_net
 from pod_compare_tpu_torch.cli.apply_net import main as apply_net_main
 from pod_compare_tpu_torch.config import merge_configs, setup_arg_parser
-from pod_compare_tpu_torch.data import TestLoader, get_dataset
-from pod_compare_tpu_torch.data.image_io import imread_bgr, resize_bilinear
+from pod_compare_tpu_torch.data import TestLoader, TrainLoader, get_dataset, load_image_bgr
+from pod_compare_tpu_torch.data.converters.common import (
+    BDD_CATEGORIES,
+    annotation,
+    write_coco_json,
+)
 from pod_compare_tpu_torch.data.synthetic import generate_synthetic_dataset, synthetic_detections
 from pod_compare_tpu_torch.evaluation.average_precision import (
     DEFAULT_CAT_IDS,
@@ -114,6 +138,7 @@ from pod_compare_tpu_torch.ops.kernels import _build
 from pod_compare_tpu_torch.ops.kernels import dropout as kdropout
 from pod_compare_tpu_torch.ops.kernels import focal as kfocal
 from pod_compare_tpu_torch.train import RandomBatches, Trainer
+from pod_compare_tpu_torch.train import trainer as trainer_module
 from pod_compare_tpu_torch.train.checkpoint import Checkpointer, load_params
 from pod_compare_tpu_torch.train.trainer import batch_to_device
 
@@ -1037,6 +1062,26 @@ def write_bdd_layout(root: str, seed: int):
     return gt_file
 
 
+def decode_and_resize_ms(paths):
+    """Per-image host ms of the loader's decode (``load_image_bgr``) and of
+    its resize to apply_net's 750x1333 (``cv2.resize``, INTER_LINEAR), with
+    OpenCV on one thread."""
+    cv2_threads = cv2.getNumThreads()
+    cv2.setNumThreads(0)
+    decode_ms, resize_ms = [], []
+    try:
+        for path in paths:
+            t = time.perf_counter()
+            img = load_image_bgr(path)
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            cv2.resize(img, (1333, 750), interpolation=cv2.INTER_LINEAR)
+            resize_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        cv2.setNumThreads(cv2_threads)
+    return decode_ms, resize_ms
+
+
 def check_metrics(name: str, summary: dict, finite_only: bool) -> None:
     """mAP and every metric of the suite finite; with `finite_only` False a
     metric may be NaN (the reference's None) where its partition is empty."""
@@ -1072,14 +1117,8 @@ def run_eval(seed: int, card: str, work: str):
         gt = json.load(f)
     write_s = time.perf_counter() - t0
     names = sorted(os.listdir(os.path.join(root, "images", "100k", "val")))[:8]
-    decode_ms, resize_ms = [], []
-    for name in names:
-        t = time.perf_counter()
-        img = imread_bgr(os.path.join(root, "images", "100k", "val", name))
-        decode_ms.append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        resize_bilinear(img, (1333, 750))
-        resize_ms.append((time.perf_counter() - t) * 1e3)
+    decode_ms, resize_ms = decode_and_resize_ms(
+        [os.path.join(root, "images", "100k", "val", name) for name in names])
 
     # The smoke's seeded, tempered weights as the checkpoint apply_net loads.
     data = os.path.join(work, "data")
@@ -1167,7 +1206,7 @@ def run_eval(seed: int, card: str, work: str):
         raise AssertionError(f"jittered ground truth scored trivially: AP50 {stats[1]}")
 
     log(f"eval: wrote {EVAL_IMAGES} PNGs at {EVAL_SIZE[0]}x{EVAL_SIZE[1]} in {write_s:.2f} s; "
-        f"host decode {np.median(decode_ms):.2f} ms/image, resize to 750x1333 "
+        f"host decode (cv2) {np.median(decode_ms):.2f} ms/image, resize to 750x1333 "
         f"{np.median(resize_ms):.2f} ms/image (median of {len(names)}, one thread) ({card})")
     log(f"eval: apply_net main {main_s:.2f} s: {summary['num_images']} images, "
         f"{summary['num_detections']} detections, loader-fed "
@@ -1184,6 +1223,286 @@ def run_eval(seed: int, card: str, work: str):
         f"{jitter_summary['mAP']:.4f} AP50 {jitter_summary['AP50']:.4f}, threshold {threshold:.4f}; "
         + ", ".join(f"{k} {v:.4f}" for k, v in {**jitter_summary["probabilistic_metrics"],
                                                   **jitter_summary["calibration_errors"]}.items()))
+    return launches
+
+
+# ------------------------------------------------------------ train_net phase
+TRAIN_NET_IMAGES = {"train": 48, "val": 16}  # cut from BDD100k's 70,000 and 10,000
+TRAIN_NET_STEPS = 20
+TRAIN_NET_PERIOD = 10  # SOLVER.CHECKPOINT_PERIOD and TEST.EVAL_PERIOD
+TRAIN_NET_CANVAS = (736, 1280)  # MIN_SIZE_TRAIN (720,): 720x1280 unscaled, padded to /32
+
+
+def write_bdd_jpeg_layout(root: str, seed: int) -> None:
+    """BDD's layout with JPEGs at BDD's 720x1280, written by cv2 at quality
+    90: labels/{train,val}_coco_format.json (the converters' schema and
+    categories) and images/100k/{train,val}/; 1-30 boxes of 7 classes per
+    image, solid rectangles over noise, from the seed."""
+    rng = np.random.default_rng([seed, 10])
+    h, w = EVAL_SIZE
+    colors = rng.integers(90, 256, (NUM_CLASSES, 3), dtype=np.uint8)
+    for split, count in TRAIN_NET_IMAGES.items():
+        image_dir = os.path.join(root, "images", "100k", split)
+        os.makedirs(image_dir)
+        images, annotations = [], []
+        for image_id in range(count):
+            img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+            for _ in range(int(rng.integers(1, 31))):
+                side = np.exp(rng.uniform(np.log(16), np.log(min(400, h // 2)), 2))
+                bw, bh = (int(v) for v in side)
+                x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+                cls = int(rng.integers(0, NUM_CLASSES))
+                img[y:y + bh, x:x + bw] = colors[cls]
+                annotations.append(annotation(len(annotations), image_id, cls + 1,
+                                              [x, y, x + bw, y + bh]))
+            name = f"{split}_{image_id:05d}.jpg"
+            if not cv2.imwrite(os.path.join(image_dir, name), img, [cv2.IMWRITE_JPEG_QUALITY, 90]):
+                raise RuntimeError(f"cv2.imwrite failed for {name}")
+            images.append({"id": image_id, "width": w, "height": h, "file_name": name,
+                           "license": 1})
+        write_coco_json(os.path.join(root, "labels", f"{split}_coco_format.json"), images,
+                        annotations, BDD_CATEGORIES)
+
+
+def backbone_pkl_and_pth(seed: int, work: str):
+    """The seed's full-width R-50 in detectron2's bare backbone names
+    (stem.*, res{2-5}.*) as a model-zoo style .pkl (numpy arrays under
+    "model") and the same tensors as a .pth."""
+    sd = convert.from_jax_params(random_jax_params(seed, NUM_CLASSES))
+    prefix = "backbone.bottom_up."
+    backbone = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    pkl, pth = os.path.join(work, "R-50.pkl"), os.path.join(work, "R-50.pth")
+    with open(pkl, "wb") as f:
+        pickle.dump({"model": {k: v.numpy() for k, v in backbone.items()},
+                     "__author__": "chip_smoke"}, f, protocol=2)
+    torch.save({"model": backbone}, pth)
+    return pkl, pth
+
+
+def batch_digest(batch) -> str:
+    h = hashlib.sha256()
+    for k in trainer_module.TRAIN_BATCH_KEYS:
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def watch_train_net(record: dict):
+    """Record what train_net.main's trainer does, without changing it: each
+    step's wall time (the step synchronised at its end, so each interval
+    holds that step's data, transfer, step and whatever followed it: a
+    checkpoint, an evaluation), losses and kernel launches, a digest of each
+    batch, and each Trainer.test call (seconds, canvas, summary) with the
+    test loaders and predictors built."""
+    step_call, test_call = trainer_module.TrainStep.__call__, trainer_module.Trainer.test
+    to_device = trainer_module.batch_to_device
+    test_loader, predictor = trainer_module.TestLoader, trainer_module.build_predictor
+    record.update(steps=[], digests=[], tests=[], built={"TestLoader": 0, "predictor": 0})
+    last = [time.perf_counter()]
+
+    def step(self, state, batch):
+        k1, k2 = kdropout.LAUNCHES, kfocal.LAUNCHES
+        metrics = step_call(self, state, batch)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        record["steps"].append({
+            "ms": (now - last[0]) * 1e3, "k1": kdropout.LAUNCHES - k1, "k2": kfocal.LAUNCHES - k2,
+            **{k: float(metrics[k]) for k in ("loss_cls", "loss_box_reg", "total_loss")}})
+        last[0] = now
+        return metrics
+
+    def digest(batch, device):
+        record["digests"].append(batch_digest(batch))
+        return to_device(batch, device)
+
+    def test(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        summary = test_call(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        loader, _ = next(iter(self._eval_cache.values()))
+        record["tests"].append({"step": self.state.step, "s": time.perf_counter() - t,
+                                "canvas": tuple(loader.canvas), "summary": summary})
+        return summary
+
+    def counted(name, fn):
+        def build(*args, **kwargs):
+            record["built"][name] += 1
+            return fn(*args, **kwargs)
+        return build
+
+    trainer_module.TrainStep.__call__, trainer_module.Trainer.test = step, test
+    trainer_module.batch_to_device = digest
+    trainer_module.TestLoader = counted("TestLoader", test_loader)
+    trainer_module.build_predictor = counted("predictor", predictor)
+    try:
+        yield record
+    finally:
+        trainer_module.TrainStep.__call__, trainer_module.Trainer.test = step_call, test_call
+        trainer_module.batch_to_device = to_device
+        trainer_module.TestLoader, trainer_module.build_predictor = test_loader, predictor
+
+
+def train_loader_ips(cfg, backend: str, batches: int):
+    """TrainLoader alone on bdd_train as train_net's trainer builds it
+    (batch 4, 720x1280 JPEGs, 8 workers), with `backend`: seconds to its
+    first batch (with 'process', the workers' start), img/s over the next
+    `batches` and their digests."""
+    t = time.perf_counter()
+    loader = TrainLoader(
+        get_dataset("bdd_train"), batch_size=cfg.SOLVER.IMS_PER_BATCH,
+        min_size=tuple(cfg.INPUT.MIN_SIZE_TRAIN), max_size=cfg.INPUT.MAX_SIZE_TRAIN,
+        divisibility=cfg.INPUT.SIZE_DIVISIBILITY, max_gt_boxes=cfg.INPUT.MAX_GT_BOXES,
+        seed=max(cfg.SEED, 0), num_workers=cfg.DATALOADER.NUM_WORKERS,
+        flip=cfg.INPUT.RANDOM_FLIP == "horizontal", worker_backend=backend)
+    try:
+        stream = loader.iter_from(0)
+        next(stream)
+        first_s = time.perf_counter() - t
+        t = time.perf_counter()
+        digests = [batch_digest(next(stream)) for _ in range(batches)]
+        ips = batches * TRAIN_BATCH / (time.perf_counter() - t)
+    finally:
+        loader.close()
+    return first_s, ips, digests
+
+
+def run_train_net(seed: int, card: str, work: str):
+    """Phase 10: train_net's main on the card at full width, as
+    `python -m pod_compare_tpu_torch.cli.train_net` runs it, from JPEGs on
+    disk in BDD's layout, warm-started from a .pkl; then a run resumed from
+    its step-10 checkpoint. Returns the launches of the uninterrupted run."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "bdd_jpeg")
+    write_bdd_jpeg_layout(root, seed)
+    write_s = time.perf_counter() - t0
+    pkl, pth = backbone_pkl_and_pth(seed, work)
+    from_pkl = convert.from_reference_state_dict(convert.load_reference_checkpoint(pkl))
+    from_pth = convert.from_reference_state_dict(convert.load_reference_checkpoint(pth))
+    if from_pkl.keys() != from_pth.keys() or not all(
+            torch.equal(v, from_pth[k]) for k, v in from_pkl.items()):
+        raise AssertionError("the .pkl and the .pth of the same tensors load differently")
+
+    os.environ["POD_COMPARE_DATA_DIR"] = os.path.join(work, "train_net")
+    opts = ["MODEL.PROBABILISTIC_MODELING.CLS_VAR_LOSS.IMPL", "pallas", "MODEL.WEIGHTS", pkl,
+            "SOLVER.MAX_ITER", TRAIN_NET_STEPS, "SOLVER.CHECKPOINT_PERIOD", TRAIN_NET_PERIOD,
+            "TEST.EVAL_PERIOD", TRAIN_NET_PERIOD, "SOLVER.IMS_PER_BATCH", TRAIN_BATCH,
+            "INPUT.MIN_SIZE_TRAIN", f"({EVAL_SIZE[0]},)"]
+
+    def args(*flags):
+        return setup_arg_parser().parse_args(
+            ["--config-file", TRAIN_CFG, "--dataset-dir", root, "--random-seed", str(seed),
+             *flags, *map(str, opts)])
+
+    cfg = merge_configs(TRAIN_CFG, "", list(map(str, opts)) + ["SEED", str(seed)])
+    if (cfg.DATALOADER.NUM_WORKERS, cfg.DATALOADER.WORKER_BACKEND) != (8, "thread"):
+        raise AssertionError("the flagship config's loader is no longer 8 threads")
+    per_step = 2 * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kdropout.LAUNCHES = kfocal.LAUNCHES = 0
+    with watch_train_net({}) as whole:
+        t = time.perf_counter()
+        trainer = train_net.main(args())
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t
+    launches = {"dropout": kdropout.LAUNCHES, "focal": kfocal.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    steps = whole["steps"]
+    if launches != {"dropout": per_step * 2 * TRAIN_NET_STEPS, "focal": TRAIN_NET_STEPS} or any(
+            (st["k1"], st["k2"]) != (2 * per_step, 1) for st in steps) or len(steps) != TRAIN_NET_STEPS:
+        raise AssertionError(f"train_net launched {launches}, per step "
+                             f"{[(st['k1'], st['k2']) for st in steps]}; expected "
+                             f"{2 * per_step} dropout and 1 focal in each of {TRAIN_NET_STEPS}")
+    if not all(math.isfinite(st[k]) for st in steps for k in ("loss_cls", "loss_box_reg")):
+        raise AssertionError(f"non-finite losses: {steps}")
+    if trainer.canvas != TRAIN_NET_CANVAS:
+        raise AssertionError(f"train canvas {trainer.canvas}")
+    final = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
+    del trainer
+    frozen = [k for k in from_pkl if ".stem." in k or ".res2." in k]
+    if not frozen or not all(torch.equal(final[k], from_pkl[k]) for k in frozen):
+        raise AssertionError("a frozen stage moved, or was not loaded from the .pkl")
+    checkpointer = Checkpointer(os.path.join(
+        os.environ["POD_COMPARE_DATA_DIR"], "BDD-Detection", "retinanet",
+        os.path.splitext(os.path.basename(TRAIN_CFG))[0], f"random_seed_{seed}"))
+    if checkpointer.steps() != [TRAIN_NET_PERIOD, TRAIN_NET_STEPS]:
+        raise AssertionError(f"checkpoints at {checkpointer.steps()}")
+    if torch.equal(checkpointer.restore(TRAIN_NET_PERIOD)["model"]["head.cls_score.weight"],
+                   final["head.cls_score.weight"]):
+        raise AssertionError("the head did not move between steps 10 and 20")
+    tests = whole["tests"]
+    eval_canvas = tuple(EVAL_CANVAS)
+    if ([t["step"] for t in tests] != [TRAIN_NET_PERIOD, TRAIN_NET_STEPS]
+            or any(t["canvas"] != eval_canvas for t in tests)
+            or whole["built"] != {"TestLoader": 1, "predictor": 1}
+            or not all(math.isfinite(t["summary"][k]) for t in tests for k in ("mAP", "AP50"))):
+        raise AssertionError(f"Trainer.test: {[(t['step'], t['canvas']) for t in tests]}, "
+                             f"built {whole['built']}, "
+                             f"{[(t['summary']['mAP'], t['summary']['AP50']) for t in tests]}")
+
+    # Resume from step 10 with 2 checkpoints on disk at most: the step-20
+    # one goes, the resumed run writes its own.
+    os.remove(checkpointer.path(TRAIN_NET_STEPS))
+    kdropout.LAUNCHES = kfocal.LAUNCHES = 0
+    with watch_train_net({}) as resumed:
+        trainer = train_net.main(args("--resume"))
+        torch.cuda.synchronize()
+    del trainer
+    if resumed["digests"] != whole["digests"][TRAIN_NET_PERIOD:]:
+        raise AssertionError("the resumed run's batches differ from the uninterrupted run's")
+    if (kdropout.LAUNCHES, kfocal.LAUNCHES) != (2 * per_step * TRAIN_NET_PERIOD, TRAIN_NET_PERIOD):
+        raise AssertionError(f"resumed run launched {kdropout.LAUNCHES}, {kfocal.LAUNCHES}")
+    diffs = [max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                 for k in ("loss_cls", "loss_box_reg", "total_loss"))
+             for a, b in zip(resumed["steps"], steps[TRAIN_NET_PERIOD:])]
+    if len(diffs) != TRAIN_NET_PERIOD or not diffs[0] <= 1e-5:
+        raise AssertionError(f"the first resumed step's losses differ by {diffs[:1]} of their "
+                             "magnitude")
+    shutil.rmtree(os.environ["POD_COMPARE_DATA_DIR"])
+    torch.cuda.empty_cache()
+
+    # The loader alone, both backends; the same batches from both.
+    thread_first, thread_ips, thread_digests = train_loader_ips(cfg, "thread", TRAIN_NET_STEPS - 1)
+    process_first, process_ips, process_digests = train_loader_ips(cfg, "process",
+                                                                   TRAIN_NET_STEPS - 1)
+    if thread_digests != process_digests or thread_digests != whole["digests"][1:]:
+        raise AssertionError("the process backend's batches differ from the thread backend's")
+    jpegs = sorted(os.listdir(os.path.join(root, "images", "100k", "train")))[:8]
+    decode_ms, resize_ms = decode_and_resize_ms(
+        [os.path.join(root, "images", "100k", "train", name) for name in jpegs])
+    shutil.rmtree(root)
+
+    # Step i's interval runs from step i-1's end: the first holds the
+    # trainer's start, the eleventh the checkpoint and evaluation of step 10
+    # (step 20's come after the last interval).
+    step_ms = [st["ms"] for i, st in enumerate(steps) if i not in (0, TRAIN_NET_PERIOD)]
+    log(f"train_net: wrote {sum(TRAIN_NET_IMAGES.values())} JPEGs (quality 90) at "
+        f"{EVAL_SIZE[0]}x{EVAL_SIZE[1]} in {write_s:.2f} s; the .pkl warm start loads the "
+        f".pth's tensors exactly ({card})")
+    log(f"train_net: main {whole_s:.2f} s for {TRAIN_NET_STEPS} steps at batch {TRAIN_BATCH} on "
+        f"{TRAIN_NET_CANVAS[0]}x{TRAIN_NET_CANVAS[1]}: loader-fed {np.median(step_ms):.2f} ms/step "
+        f"median of the {len(step_ms)} steps without the start or an eval "
+        f"({[round(x, 2) for x in step_ms]}), {launches['dropout']} dropout and "
+        f"{launches['focal']} focal launches, peak memory {peak / 2 ** 30:.3f} GiB ({card})")
+    log("train_net: losses at steps " + "; ".join(
+        f"{i + 1}: " + ", ".join(f"{k} {steps[i][k]:.4g}" for k in ("loss_cls", "loss_box_reg"))
+        for i in (0, TRAIN_NET_PERIOD - 1, TRAIN_NET_STEPS - 1)) + f" ({card})")
+    log(f"train_net: Trainer.test at steps {[t['step'] for t in tests]} on "
+        f"{eval_canvas[0]}x{eval_canvas[1]}: {[round(t['s'], 2) for t in tests]} s, mAP "
+        f"{[round(t['summary']['mAP'], 4) for t in tests]}, AP50 "
+        f"{[round(t['summary']['AP50'], 4) for t in tests]}; one test loader and one predictor "
+        f"built over both calls ({card})")
+    first = TRAIN_NET_PERIOD + 1
+    log(f"train_net: resumed at step {TRAIN_NET_PERIOD}: batches {first}-{TRAIN_NET_STEPS} equal "
+        f"by digest, step {first} losses within {diffs[0]:.3e} of their magnitude, the largest "
+        f"over steps {first}-{TRAIN_NET_STEPS} {max(diffs):.3e} ({card})")
+    log(f"train_net: TrainLoader alone, 8 workers: thread {thread_ips:.2f} img/s (first batch "
+        f"after {thread_first:.2f} s), process {process_ips:.2f} img/s (first batch after "
+        f"{process_first:.2f} s, the spawned workers' start), the same batches; cv2 decode "
+        f"{np.median(decode_ms):.2f} ms per {EVAL_SIZE[0]}x{EVAL_SIZE[1]} JPEG, resize to 750x1333 "
+        f"{np.median(resize_ms):.2f} ms (median of {len(jpegs)}, one thread) ({card})")
     return launches
 
 
@@ -1266,6 +1585,10 @@ def main() -> int:
         t0 = time.perf_counter()
         eval_launches = run_eval(args.seed, card, work)
         phase("eval", t0)
+
+        t0 = time.perf_counter()
+        train_net_launches = run_train_net(args.seed, card, work)
+        phase("train_net", t0)
     log(f"[total] {time.perf_counter() - t_all:.2f} s ({card})")
 
     kernels = [{
@@ -1297,6 +1620,7 @@ def main() -> int:
         "eval_plain_ms": k1["eval"]["plain_ms"],
         "eval_bound_ms": k1["eval"]["bound_ms"],
         "eval_torch_dropout_ms": k1["eval"]["torch_dropout_ms"],
+        "train_net_launches": train_net_launches["dropout"],
     }, {
         "name": "stochastic_focal_elem",
         "route": "cuda",
@@ -1320,6 +1644,7 @@ def main() -> int:
         "num_samples": 10,
         "dtype": "float32",
         "train_launches_per_step": step_launches["focal"],
+        "train_net_launches": train_net_launches["focal"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,10 +13,13 @@ probabilistic metrics and the calibration errors. The weights are the
 latest checkpoint under ``OUTPUT_DIR`` (``train/checkpoint.py``). It runs on
 CUDA unless the caller names a device, and raises without CUDA otherwise.
 
+``profile=True`` traces the inference loop with ``torch.profiler`` into
+the inference directory's ``profile/``.
+
 Not ported yet, and refused with the ROADMAP item that ports it: the
-automatic batch size (C3), PDQ (C2), the profiler (C3), more than one
-process or device (B4), and the inference modes other than
-``standard_nms`` and ``bayes_od`` (A6/A7).
+automatic batch size (C3), PDQ (C2), more than one process or device
+(B4), and the inference modes other than ``standard_nms`` and ``bayes_od``
+(A6/A7).
 """
 
 import json
@@ -46,12 +49,13 @@ from pod_compare_tpu_torch.inference.predictor import build_predictor
 from pod_compare_tpu_torch.train.checkpoint import load_params
 from pod_compare_tpu_torch.utils.device import resolve_device
 from pod_compare_tpu_torch.utils.logging import setup_logger
+from pod_compare_tpu_torch.utils.profiling import trace
 
 PORTED_MODES = ("standard_nms", "bayes_od")
 _SEED_HIGH = 2 ** 63 - 1
 
 
-def _refuse_unported(cfg, batch_size, resume, params_list, mesh, profile, run_pdq) -> None:
+def _refuse_unported(cfg, batch_size, resume, params_list, mesh, run_pdq) -> None:
     if not resume:
         raise ValueError("apply_net: resume=False asks for a fresh run, but the weights are "
                          "always `params` or the latest checkpoint under cfg.OUTPUT_DIR")
@@ -60,7 +64,6 @@ def _refuse_unported(cfg, batch_size, resume, params_list, mesh, profile, run_pd
         (batch_size in ("auto", 0, None),
          "batch_size='auto' (a peak-memory guard, ROADMAP §1 C3)"),
         (run_pdq, "run_pdq (ROADMAP §1 C2)"),
-        (profile, "profile=True (torch.profiler, ROADMAP §1 C3)"),
         (params_list is not None or mode not in PORTED_MODES,
          f"INFERENCE_MODE {mode!r} (ROADMAP §1 A6/A7)"),
         (mesh is not None or cfg.PARALLEL.NUM_DEVICES not in (-1, 1)
@@ -102,7 +105,7 @@ def run_inference(
     `device` is where the predictor and the scoring rules run: CUDA unless
     given. `resume` is there for the JAX CLI's signature and must stay True:
     there is no fresh run, the weights are `params` or the checkpoint."""
-    _refuse_unported(cfg, batch_size, resume, params_list, mesh, profile, run_pdq)
+    _refuse_unported(cfg, batch_size, resume, params_list, mesh, run_pdq)
     device = resolve_device(device)
     logger = setup_logger(name="pod_compare_tpu_torch")
     output_dir = inference_output_dir(cfg, test_dataset, inference_name)
@@ -151,18 +154,19 @@ def run_inference(
     feed = prefetcher if prefetcher is not None else iter(loader)
     start = time.time()
     try:
-        pending = None
-        for batch in feed:
-            seed = int(torch.randint(0, _SEED_HIGH, (1,), generator=seeds))
-            dets = predictor(
-                batch["images"], batch["input_sizes"], batch["output_sizes"],
-                generator=torch.Generator().manual_seed(seed),
-            )
+        with trace(output_dir, enabled=profile):
+            pending = None
+            for batch in feed:
+                seed = int(torch.randint(0, _SEED_HIGH, (1,), generator=seeds))
+                dets = predictor(
+                    batch["images"], batch["input_sizes"], batch["output_sizes"],
+                    generator=torch.Generator().manual_seed(seed),
+                )
+                if pending is not None:
+                    drain(pending)
+                pending = (dets, batch)
             if pending is not None:
                 drain(pending)
-            pending = (dets, batch)
-        if pending is not None:
-            drain(pending)
     finally:
         if prefetcher is not None:
             prefetcher.close()

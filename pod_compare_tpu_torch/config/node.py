@@ -11,6 +11,7 @@ package.
 """
 
 import ast
+import copy
 import os
 import re
 from typing import Any, Dict, List, Tuple
@@ -92,6 +93,10 @@ class ConfigNode(dict):
                 value = _parse_literal(value)
             node[leaf] = _coerce(value, node[leaf], key)
         return self
+
+    def clone(self) -> "ConfigNode":
+        """An unfrozen deep copy."""
+        return ConfigNode(copy.deepcopy(self.to_dict()))
 
     def to_dict(self) -> Dict[str, Any]:
         return {

@@ -1,4 +1,4 @@
-"""Datasets, image files and the inference loader (no OpenCV, no JAX)."""
+"""Datasets, the synthetic dataset and the train and test loaders."""
 
 from pod_compare_tpu_torch.data import metadata
 from pod_compare_tpu_torch.data.datasets import (
@@ -11,6 +11,8 @@ from pod_compare_tpu_torch.data.datasets import (
 from pod_compare_tpu_torch.data.loader import (
     DevicePrefetcher,
     TestLoader,
+    TrainLoader,
+    load_image_bgr,
     resize_shortest_edge,
     static_canvas,
 )
@@ -24,6 +26,8 @@ __all__ = [
     "register_coco_instances",
     "setup_all_datasets",
     "TestLoader",
+    "TrainLoader",
+    "load_image_bgr",
     "resize_shortest_edge",
     "static_canvas",
 ]

@@ -1,29 +1,35 @@
-"""Input pipeline for inference: decode → resize → pad-to-static-canvas → batch.
+"""Input pipeline: decode → resize → flip → pad-to-static-canvas → batch.
 
-The inference half of ``pod_compare_tpu/data/loader.py``, with the same
-geometry and the same batches: every image is resized with detectron2's
-shortest-edge rule and padded onto one canvas computed from the dataset's
-image sizes, and the last batch is padded by repeating its last image and
-flagged in ``batch_valid``. Images are read and resized by
-``data/image_io.py`` (no OpenCV). A thread pool decodes, a background thread
-keeps batches ready, and ``DevicePrefetcher`` copies the next batch to the
-card from pinned memory on a side CUDA stream while the current one runs.
+The port's counterpart of ``pod_compare_tpu/data/loader.py``, with the same
+geometry, the same random draws and the same batches, bit for bit: every
+image is read with ``cv2.imread(IMREAD_COLOR)`` (PNG or JPEG, EXIF
+orientation applied), resized with ``cv2.resize(INTER_LINEAR)`` by
+detectron2's shortest-edge rule and padded onto one canvas computed from
+the dataset's image sizes; ground truth is padded to a fixed box count with
+a validity mask.
 
-Not ported yet (ROADMAP §1): ``TrainLoader`` with flips and multi-scale
-training, and the ``process`` worker backend.
+``TrainLoader`` yields an infinite shuffled stream (random horizontal
+flips, "choice" sampling over MIN_SIZE_TRAIN) that ``iter_from(k)`` resumes
+at batch k by replaying the random draws; ``TestLoader`` yields the dataset
+once in order. A pool of threads (cv2 releases the interpreter lock while
+it decodes and resizes) or of spawned processes prepares the images, a
+background thread keeps batches ready, and ``DevicePrefetcher`` copies the
+next batch to the card from pinned memory on a side CUDA stream while the
+current one runs.
 """
 
 import concurrent.futures
+import multiprocessing
 import queue
 import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
+import cv2
 import numpy as np
 import torch
 
 from pod_compare_tpu_torch.data.datasets import DatasetInfo
-from pod_compare_tpu_torch.data.image_io import imread_bgr, resize_bilinear
 
 
 def resize_shortest_edge(h: int, w: int, min_size: int, max_size: int) -> Tuple[int, int]:
@@ -47,6 +53,16 @@ def static_canvas(
     return round_up(max(hs), divisibility), round_up(max(ws), divisibility)
 
 
+def load_image_bgr(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 BGR image (the reference's INPUT.FORMAT), as
+    ``cv2.imread(IMREAD_COLOR)`` returns it. It stays uint8 through resize,
+    pad and batch; the model normalises on the device."""
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        raise FileNotFoundError(path)
+    return img
+
+
 @dataclass
 class LoaderConfig:
     min_size: int
@@ -62,9 +78,7 @@ class LoaderConfig:
 def _prepare_record(
     record: dict, lc: LoaderConfig, canvas: Tuple[int, int], rng: np.random.RandomState
 ) -> Dict[str, np.ndarray]:
-    # uint8 BGR (the reference's INPUT.FORMAT) through resize, pad and
-    # batch; the model normalises on the device
-    img = imread_bgr(record["file_name"])
+    img = load_image_bgr(record["file_name"])
     if lc.image_format == "RGB":
         img = img[:, :, ::-1]
     h0, w0 = img.shape[:2]
@@ -72,7 +86,7 @@ def _prepare_record(
     if lc.min_size_choices and len(lc.min_size_choices) > 1:
         min_size = lc.min_size_choices[rng.randint(len(lc.min_size_choices))]
     nh, nw = resize_shortest_edge(h0, w0, min_size, lc.max_size)
-    img = resize_bilinear(img, (nw, nh))
+    img = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)
 
     boxes = np.array([a["bbox"] for a in record["annotations"]], np.float32).reshape(-1, 4)
     classes = np.array([a["category_id"] for a in record["annotations"]], np.int32)
@@ -186,33 +200,150 @@ class _Prefetcher:
             pass
 
 
+def _process_worker_init():
+    # One OpenCV thread per worker process: the pool is the parallelism, and
+    # cv2's own threads would oversubscribe the host's cores.
+    cv2.setNumThreads(0)
+
+
 class _WorkerPool:
-    """Ordered map() over decode work items on a thread pool: zlib, the
-    C++ unfilter and numpy's resize release the interpreter lock for most of
-    their work. The JAX package's 'process' backend is not ported yet."""
+    """Ordered map() over decode work items.
+
+    'thread': cv2 releases the interpreter lock while it decodes and resizes,
+    so threads overlap that work with each other and with the device.
+    'process': a pool of spawned worker processes (spawn, not fork: the
+    parent holds CUDA's threads). Work items cross as small (record, config,
+    canvas, seed) tuples and prepared canvases come back pickled; each
+    worker imports this module, and with it torch, when it starts, and
+    nothing of CUDA."""
 
     def __init__(self, num_workers: int, backend: str = "thread"):
-        if backend == "process":
-            raise NotImplementedError(
-                "DATALOADER.WORKER_BACKEND 'process' is not ported yet (ROADMAP §1, A8)")
-        if backend != "thread":
+        if backend not in ("thread", "process"):
             raise ValueError(
                 f"DATALOADER.WORKER_BACKEND must be 'thread' or 'process', got {backend!r}")
-        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=max(num_workers, 1))
+        self.backend = backend
+        workers = max(num_workers, 1)
+        if backend == "process":
+            self._pool = multiprocessing.get_context("spawn").Pool(
+                workers, initializer=_process_worker_init)
+        else:
+            self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=workers)
 
     def map(self, fn, items):
+        if self.backend == "process":
+            return self._pool.map(fn, items, chunksize=1)
         return list(self._pool.map(fn, items))
 
     def close(self):
-        self._pool.shutdown(wait=True)
+        """Release the threads or processes; the caller has stopped every
+        producer that submits work (``_PooledLoader.close``), so nothing is
+        in flight."""
+        if self.backend == "process":
+            self._pool.close()
+            self._pool.join()
+        else:
+            self._pool.shutdown(wait=True)
 
 
-class TestLoader:
+class _PooledLoader:
+    """A worker pool and the prefetch threads of the iterations over it.
+    ``close()`` stops every prefetch thread it started, then the pool: a
+    prefetch thread left running would submit to a pool shut down under it
+    (the JAX loaders' race). A loader is not iterated after close()."""
+
+    def __init__(self, num_workers: int, worker_backend: str, prefetch: int):
+        self._pool = _WorkerPool(num_workers, worker_backend)
+        self.prefetch = prefetch
+        self._prefetchers: List[_Prefetcher] = []
+
+    def _stream(self, gen) -> Iterator[Dict[str, np.ndarray]]:
+        prefetcher = _Prefetcher(gen, self.prefetch)
+        self._prefetchers.append(prefetcher)
+        return iter(prefetcher)
+
+    def close(self):
+        for prefetcher in self._prefetchers:
+            prefetcher.close()
+        self._prefetchers.clear()
+        self._pool.close()
+
+
+class TrainLoader(_PooledLoader):
+    """Infinite shuffled loader with a static canvas and padded ground truth
+    (the reference's build_detection_train_loader). Records without an
+    annotation are dropped.
+
+    The random stream is the JAX loader's: ``RandomState(seed)`` draws one
+    permutation per epoch and one uniform vector per batch; item i of a
+    batch is prepared with ``RandomState(int(f_i * 2**31) & 0x7FFFFFFF)``,
+    which draws its MIN_SIZE_TRAIN choice (when there are several), then
+    its flip."""
+
+    def __init__(
+        self,
+        dataset: DatasetInfo,
+        batch_size: int,
+        min_size,
+        max_size: int,
+        divisibility: int = 32,
+        max_gt_boxes: int = 100,
+        seed: int = 0,
+        canvas: Optional[Tuple[int, int]] = None,
+        prefetch: int = 2,
+        num_workers: int = 4,
+        flip: bool = True,
+        worker_backend: str = "thread",
+    ):
+        self.records = [r for r in dataset.load() if r["annotations"]]
+        if not self.records:
+            raise ValueError(f"Dataset {dataset.name} has no annotated images")
+        self.batch_size = batch_size
+        # `min_size` is an int or the MIN_SIZE_TRAIN tuple, one choice per
+        # image; the canvas covers the largest.
+        choices = (tuple(int(m) for m in min_size) if isinstance(min_size, (tuple, list))
+                   else (int(min_size),))
+        self.lc = LoaderConfig(
+            min_size=max(choices), max_size=max_size, divisibility=divisibility,
+            max_gt_boxes=max_gt_boxes, flip=flip, min_size_choices=choices,
+        )
+        self.canvas = canvas or static_canvas(
+            [(r["height"], r["width"]) for r in self.records],
+            max(choices), max_size, divisibility,
+        )
+        self.seed = seed
+        super().__init__(num_workers, worker_backend, prefetch)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self.iter_from(0)
+
+    def iter_from(self, start_iter: int) -> Iterator[Dict[str, np.ndarray]]:
+        """The infinite stream from batch `start_iter` on. The batches before
+        it are skipped by replaying their random draws without decoding, so
+        a run resumed at step k consumes the batches an uninterrupted run
+        would."""
+        def gen():
+            rng = np.random.RandomState(self.seed)
+            skip = int(start_iter)
+            while True:
+                order = rng.permutation(len(self.records))
+                for start in range(0, len(order) - self.batch_size + 1, self.batch_size):
+                    draws = rng.rand(self.batch_size)
+                    if skip > 0:
+                        skip -= 1
+                        continue
+                    items = self._pool.map(_prepare_star, [
+                        (self.records[i], self.lc, self.canvas, int(f * 2 ** 31) & 0x7FFFFFFF)
+                        for i, f in zip(order[start:start + self.batch_size], draws)
+                    ])
+                    yield _collate(items)
+
+        return self._stream(gen)
+
+
+class TestLoader(_PooledLoader):
     """Sequential loader; the final batch is padded by repeating the last
-    image, flagged via `batch_valid`. ``close()`` stops the background
-    threads of every iteration still running, then the decode pool. (The
-    JAX loader's per-process shard comes with multi-process evaluation,
-    ROADMAP §1 B4.)"""
+    image, flagged in `batch_valid`. (The JAX loader's per-process shard
+    comes with multi-process evaluation, ROADMAP §1 B4.)"""
 
     __test__ = False  # "Test" = test-set loader, not a pytest class
 
@@ -233,26 +364,15 @@ class TestLoader:
             min_size if isinstance(min_size, int) else max(min_size),
             max_size, divisibility,
         )
-        self._pool = _WorkerPool(num_workers, worker_backend)
         self.batch_size = batch_size
         self.lc = LoaderConfig(
             min_size=min_size, max_size=max_size, divisibility=divisibility,
             max_gt_boxes=1, flip=False,
         )
-        self.prefetch = prefetch
-        self._prefetchers: List[_Prefetcher] = []
+        super().__init__(num_workers, worker_backend, prefetch)
 
     def __len__(self):
         return -(-len(self.records) // self.batch_size)
-
-    def close(self):
-        """Stop every prefetch thread, then release the decode pool: a
-        prefetch thread left running would submit to a pool shut down under
-        it. The loader is not iterated after close()."""
-        for prefetcher in self._prefetchers:
-            prefetcher.close()
-        self._prefetchers.clear()
-        self._pool.close()
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         def gen():
@@ -267,9 +387,7 @@ class TestLoader:
                 batch["batch_valid"] = valid
                 yield batch
 
-        prefetcher = _Prefetcher(gen, self.prefetch)
-        self._prefetchers.append(prefetcher)
-        return iter(prefetcher)
+        return self._stream(gen)
 
 
 class DevicePrefetcher:

@@ -1,8 +1,8 @@
 """Synthetic COCO-format dataset generator for tests and benchmarks.
 
 The port's counterpart of ``pod_compare_tpu/data/synthetic.py``: the same
-RandomState draws in the same order, so the json is byte-identical and the
-pixels equal; the PNGs are written by ``data/image_io.py`` instead of cv2.
+RandomState draws in the same order, written the same way (``cv2.imwrite``),
+so the two packages' datasets are byte-identical files.
 
 The reference has no test assets; SURVEY.md §4 calls for integration tests
 on a tiny synthetic COCO dataset. Images contain solid rectangles on noise
@@ -13,10 +13,10 @@ import json
 import os
 from typing import List, Tuple
 
+import cv2
 import numpy as np
 
 from pod_compare_tpu_torch.data.datasets import register_coco_instances
-from pod_compare_tpu_torch.data.image_io import write_png
 
 
 def generate_synthetic_dataset(
@@ -58,7 +58,7 @@ def generate_synthetic_dataset(
             )
             ann_id += 1
         fname = f"img_{img_id:04d}.png"
-        write_png(os.path.join(image_dir, fname), img)
+        cv2.imwrite(os.path.join(image_dir, fname), img)
         images.append(
             {"id": img_id, "file_name": fname, "height": h, "width": w, "license": 1}
         )

@@ -14,8 +14,11 @@ back onto the reference namespace:
   head/{cls_score,bbox_pred,cls_var,bbox_cov}
 
 It takes plain nested dicts of numpy arrays and needs no JAX.
+``load_reference_checkpoint`` reads a reference checkpoint (a detectron2
+``.pkl`` or a torch ``.pth``) for ``from_reference_state_dict``.
 """
 
+import pickle
 import re
 from typing import Dict, Mapping
 
@@ -131,3 +134,22 @@ def from_reference_state_dict(state: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"Unrecognized reference checkpoint key: {key}")
         out[key] = torch.as_tensor(np.asarray(value, np.float32))
     return out
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """The flat state dict of a reference checkpoint, as the JAX package's
+    ``train/torch_convert.py::load_reference_checkpoint`` reads it: a
+    detectron2 ``.pkl`` (a pickle written under Python 2, hence latin1, of
+    numpy arrays, the weights under ``"model"`` or at the top level) or a
+    torch ``.pth`` (tensors, under ``"model"`` or at the top level). A
+    ``.pkl`` is unpickled, which runs whatever code it names: load only
+    files from a source you trust, as with detectron2's own loader."""
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+        state = data.get("model", data)
+        return {k: np.asarray(v) for k, v in state.items()}
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    state = data.get("model", data)
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in state.items()}

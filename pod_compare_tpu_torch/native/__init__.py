@@ -1,10 +1,9 @@
 """The port's C++ engines, built with g++ and bound with ctypes.
 
 The port's own copies of ``pod_compare_tpu/native``: the COCO evaluation
-engine (``cocoeval.cpp``), the matching engine of the uncertainty metrics
-(``match_engine.cpp``), and the PNG unfilter of the image reader
-(``png_unfilter.cpp``). ``g++ -O3 -shared -fPIC`` compiles the three into
-one library under the repository's git-ignored ``build/``, named by a hash
+engine (``cocoeval.cpp``) and the matching engine of the uncertainty
+metrics (``match_engine.cpp``). ``g++ -O3 -shared -fPIC`` compiles the two
+into one library under the repository's git-ignored ``build/``, named by a hash
 of the sources and the flags, at first use; nothing is built at import.
 
 There is no fallback: a failed build or load raises. The evaluators run
@@ -24,7 +23,7 @@ import numpy as np
 from pod_compare_tpu_torch.ops.kernels._build import BUILD_DIR
 
 SOURCE_DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("cocoeval.cpp", "match_engine.cpp", "png_unfilter.cpp")
+SOURCES = ("cocoeval.cpp", "match_engine.cpp")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()  # the build, the load, and the match engine's per-call state
@@ -47,7 +46,6 @@ _SIGNATURES = {
         ctypes.c_double, ctypes.c_double, _i64,
     ],
     "match_engine_fetch": [_i64, _i64, _f64, _i64, _i64, _f64, _i64, _i64],
-    "png_unfilter": [_u8, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8],
 }
 
 
@@ -177,17 +175,3 @@ def match_engine_run(
     del held
     return out
 
-
-def png_unfilter(raw: np.ndarray, height: int, row_bytes: int, bpp: int) -> np.ndarray:
-    """Undo PNG filter method 0 on `height` inflated rows of 1 + row_bytes
-    bytes; returns (height, row_bytes) uint8. Raises ValueError on an
-    unknown filter type."""
-    raw = np.ascontiguousarray(raw, np.uint8)
-    if raw.size != height * (row_bytes + 1):
-        raise ValueError(f"{raw.size} bytes of image data, expected {height * (row_bytes + 1)}")
-    out = np.empty((height, row_bytes), np.uint8)
-    ret = load().png_unfilter(
-        raw.ctypes.data_as(_u8), height, row_bytes, bpp, out.ctypes.data_as(_u8))
-    if ret != 0:
-        raise ValueError(f"unknown PNG filter type in row {ret - 1}")
-    return out

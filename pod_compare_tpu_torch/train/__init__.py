@@ -20,6 +20,7 @@ from pod_compare_tpu_torch.train.trainer import (
     TrainStep,
     create_train_state,
     make_train_step,
+    resolve_weights_path,
 )
 
 __all__ = [
@@ -35,6 +36,7 @@ __all__ = [
     "create_train_state",
     "load_params",
     "make_train_step",
+    "resolve_weights_path",
     "resume_or_load",
     "sibling_seed_dir",
     "trainable_mask",

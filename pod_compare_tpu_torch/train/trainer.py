@@ -12,11 +12,13 @@ of a step's dropout masks and stochastic loss are drawn from it on the
 host, so a step reads nothing back from the device; the losses stay on the
 device until they are logged every ``log_period`` steps.
 
-The trainer takes its batches from the caller: any object with a
-``canvas`` (H, W) and ``iter_from(start)`` yielding dicts of the four
-``TRAIN_BATCH_KEYS`` arrays (uint8 (B, H, W, 3) images, (B, G, 4) boxes,
-(B, G) classes, (B, G) validity), as the JAX package's ``TrainLoader``
-yields them; ``train.random_batches.RandomBatches`` is one.
+The trainer reads DATASETS.TRAIN[0] through ``data.TrainLoader``, or takes
+its batches from the caller: any object with a ``canvas`` (H, W) and
+``iter_from(start)`` yielding dicts of the four ``TRAIN_BATCH_KEYS`` arrays
+(uint8 (B, H, W, 3) images, (B, G, 4) boxes, (B, G) classes, (B, G)
+validity), as ``TrainLoader`` yields them; ``train.random_batches.
+RandomBatches`` is one. Every TEST.EVAL_PERIOD steps ``test`` scores the
+current weights with standard NMS and COCO mAP.
 """
 
 import os
@@ -27,19 +29,27 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pod_compare_tpu_torch.cli import apply_net  # a module: apply_net imports train too
+from pod_compare_tpu_torch.data.datasets import get_dataset
+from pod_compare_tpu_torch.data.loader import TestLoader, TrainLoader
+from pod_compare_tpu_torch.inference.predictor import build_predictor
 from pod_compare_tpu_torch.models import (
     ProbabilisticRetinaNet,
     TowerDropout,
     build_anchor_generator,
     build_model,
 )
-from pod_compare_tpu_torch.models.convert import from_reference_state_dict
+from pod_compare_tpu_torch.models.convert import (
+    from_reference_state_dict,
+    load_reference_checkpoint,
+)
 from pod_compare_tpu_torch.train.checkpoint import Checkpointer, load_params, resume_or_load
 from pod_compare_tpu_torch.train.loss import LossConfig, compute_losses
 from pod_compare_tpu_torch.train.optim import build_optimizer, clip_gradients, make_schedule_fn
 from pod_compare_tpu_torch.utils.device import resolve_device
 from pod_compare_tpu_torch.utils.events import EventStorage
 from pod_compare_tpu_torch.utils.logging import setup_logger
+from pod_compare_tpu_torch.utils.profiling import annotate, trace
 
 TRAIN_BATCH_KEYS = ("images", "gt_boxes", "gt_classes", "gt_valid")
 _SEED_HIGH = 2 ** 63 - 1
@@ -63,8 +73,13 @@ class TrainState:
         }
 
     def load_state_dict(self, saved: Dict) -> None:
-        self.step = int(saved["step"])
+        """Restore a trainer's checkpoint. One that holds the model alone
+        (``cli/convert_torch_checkpoint.py`` writes such a step 0) sets the
+        weights and leaves the rest of the state as it is."""
         self.model.load_state_dict(saved["model"])
+        if set(saved) == {"model"}:
+            return
+        self.step = int(saved["step"])
         self.optimizer.load_state_dict(saved["optimizer"])
         self.loss_normalizer = saved["loss_normalizer"].to(self.loss_normalizer.device)
         self.generator.set_state(saved["generator"])
@@ -155,25 +170,66 @@ def make_train_step(cfg, anchors: torch.Tensor) -> TrainStep:
     return TrainStep(cfg, anchors)
 
 
+def resolve_weights_path(weights: str) -> str:
+    """MODEL.WEIGHTS as a local path. The reference's ``detectron2://``
+    model-zoo scheme (Base-BDD-RetinaNet.yaml:6) resolves against a local
+    copy of the zoo under $DETECTRON2_CACHE, in fvcore's layout; nothing is
+    downloaded, and a miss raises with the recipe."""
+    scheme = "detectron2://"
+    if not weights.startswith(scheme):
+        return weights
+    relative = weights[len(scheme):]
+    cache = os.environ.get("DETECTRON2_CACHE")
+    local = os.path.join(cache, relative) if cache else None
+    if local is None or not os.path.isfile(local):
+        where = f"{local} not found" if local else "DETECTRON2_CACHE is not set"
+        raise FileNotFoundError(
+            f"MODEL.WEIGHTS={weights}: detectron2:// URLs resolve against a local copy of "
+            f"detectron2's model zoo under $DETECTRON2_CACHE ({where}); nothing is downloaded. "
+            f"Copy {relative} there from a machine that has it (a detectron2 install keeps it "
+            "in its iopath cache), or point MODEL.WEIGHTS at a local .pkl or .pth."
+        )
+    return local
+
+
 class Trainer:
     """Host-side training loop.
 
     Args:
         cfg: the training config.
-        loader: the batch source (see the module's docstring).
+        loader: the batch source (see the module's docstring); None builds a
+            ``TrainLoader`` over `dataset` (default DATASETS.TRAIN[0]) with
+            the config's input sizes, seed, workers and flips, on `canvas`
+            (default: the one the dataset's sizes need).
         device: torch device; None means CUDA, and raises without it.
 
     On CUDA the constructor turns TF32 off for convolutions and products,
     process-wide, so that float32 runs in full float32 as on the CPU.
+    ``close()`` releases the loaders the trainer built.
     """
 
-    def __init__(self, cfg, loader, device=None):
+    def __init__(self, cfg, loader=None, device=None, dataset=None, canvas=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.logger = setup_logger(name="pod_compare_tpu_torch.trainer")
+        self._own_loader = loader is None
+        if loader is None:
+            loader = TrainLoader(
+                dataset or get_dataset(cfg.DATASETS.TRAIN[0]),
+                batch_size=cfg.SOLVER.IMS_PER_BATCH,
+                min_size=tuple(cfg.INPUT.MIN_SIZE_TRAIN),
+                max_size=cfg.INPUT.MAX_SIZE_TRAIN,
+                divisibility=cfg.INPUT.SIZE_DIVISIBILITY,
+                max_gt_boxes=cfg.INPUT.MAX_GT_BOXES,
+                seed=max(cfg.SEED, 0),
+                canvas=canvas,
+                num_workers=cfg.DATALOADER.NUM_WORKERS,
+                flip=cfg.INPUT.RANDOM_FLIP == "horizontal",
+                worker_backend=cfg.DATALOADER.WORKER_BACKEND,
+            )
         self.loader = loader
         self.canvas = tuple(int(s) for s in loader.canvas)
         self.anchors = torch.as_tensor(
@@ -183,15 +239,21 @@ class Trainer:
         self.train_step = make_train_step(cfg, self.anchors)
         self.checkpointer = Checkpointer(cfg.OUTPUT_DIR)
         self.storage = EventStorage(cfg.OUTPUT_DIR)
+        # (dataset, batch) -> (loader, predictor), reused by every test()
+        # call: periodic evaluation builds neither again, and evaluating
+        # two splits in turn keeps both.
+        self._eval_cache = {}
         self.logger.info(
             f"canvas={self.canvas} anchors={self.anchors.shape[0]} device={self.device}"
         )
 
     def resume_or_load(self, resume: bool = False) -> None:
         """Resume from the latest checkpoint when `resume`, else warm-start
-        from MODEL.WEIGHTS: a reference ``.pth`` state dict in the detectron2
-        namespace (a whole model or a backbone; what it lacks stays at its
-        initialisation) or an output directory of this trainer."""
+        from MODEL.WEIGHTS: a reference checkpoint in the detectron2
+        namespace, a ``.pkl`` or a ``.pth`` (a whole model or a backbone;
+        what it lacks stays at its initialisation), possibly named by a
+        ``detectron2://`` URL (``resolve_weights_path``), or an output
+        directory of this trainer."""
         saved = resume_or_load(self.checkpointer, resume)
         if saved is not None:
             self.state.load_state_dict(saved)
@@ -200,15 +262,15 @@ class Trainer:
         weights = self.cfg.MODEL.WEIGHTS
         if not weights:
             return
-        if weights.endswith(".pth"):
-            data = torch.load(weights, map_location="cpu", weights_only=True)
-            state = from_reference_state_dict(data.get("model", data))
+        weights = resolve_weights_path(weights)
+        if weights.endswith((".pth", ".pkl")):
+            state = from_reference_state_dict(load_reference_checkpoint(weights))
         elif os.path.isdir(weights):
             state = load_params(weights)
         else:
             raise ValueError(
-                f"MODEL.WEIGHTS={weights}: the trainer takes a .pth state dict or an output "
-                "directory; .pkl model-zoo files need the training CLI's converter"
+                f"MODEL.WEIGHTS={weights}: the trainer takes a .pkl or .pth reference "
+                "checkpoint or an output directory"
             )
         missing, unexpected = self.state.model.load_state_dict(state, strict=False)
         if unexpected:
@@ -217,34 +279,111 @@ class Trainer:
             f"Warm-started from MODEL.WEIGHTS={weights} ({len(missing)} tensors left at init)"
         )
 
-    def train(self, max_iter: Optional[int] = None, log_period: int = 20) -> None:
+    def train(self, max_iter: Optional[int] = None, log_period: int = 20,
+              profile_iters: Optional[Tuple[int, int]] = None) -> None:
         """Run the loop from the state's step to `max_iter` (default
-        SOLVER.MAX_ITER), logging every `log_period` steps and saving a
-        checkpoint every SOLVER.CHECKPOINT_PERIOD steps and at the end."""
+        SOLVER.MAX_ITER), logging every `log_period` steps, saving a
+        checkpoint every SOLVER.CHECKPOINT_PERIOD steps and at the end, and
+        evaluating every TEST.EVAL_PERIOD steps (0: never).
+        `profile_iters=(start, stop)` traces the steps in [start, stop) with
+        ``torch.profiler`` into OUTPUT_DIR/profile."""
         cfg = self.cfg
         max_iter = cfg.SOLVER.MAX_ITER if max_iter is None else max_iter
         start = self.state.step
         # A resumed run consumes the batches an uninterrupted run would.
         data = self.loader.iter_from(start)
         self.logger.info(f"Starting training from iteration {start}")
+        profiling = None
         t0 = time.perf_counter()
-        for it in range(start, max_iter):
-            metrics = self.train_step(self.state, batch_to_device(next(data), self.device))
-            self.storage.iter = it
-            last = it == max_iter - 1
-            if (it + 1) % log_period == 0 or last:
-                host = {k: float(v) for k, v in metrics.items()}
-                host["iter_time"] = (time.perf_counter() - t0) / log_period
-                t0 = time.perf_counter()
-                self.storage.put_scalars(**host)
-                self.storage.write()
-                self.logger.info(
-                    f"iter {it + 1}/{max_iter} "
-                    + " ".join(f"{k}={v:.4g}" for k, v in sorted(host.items()))
-                )
-            if (it + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or last:
-                self.checkpointer.save(it + 1, self.state.state_dict())
+        try:
+            for it in range(start, max_iter):
+                if profile_iters is not None:
+                    if it == profile_iters[0]:
+                        profiling = trace(cfg.OUTPUT_DIR)
+                        profiling.__enter__()
+                    elif it == profile_iters[1] and profiling is not None:
+                        profiling.__exit__(None, None, None)
+                        profiling = None
+                with annotate("data"):
+                    batch = batch_to_device(next(data), self.device)
+                with annotate("train_step"):
+                    metrics = self.train_step(self.state, batch)
+                self.storage.iter = it
+                last = it == max_iter - 1
+                if (it + 1) % log_period == 0 or last:
+                    host = {k: float(v) for k, v in metrics.items()}
+                    host["iter_time"] = (time.perf_counter() - t0) / log_period
+                    t0 = time.perf_counter()
+                    self.storage.put_scalars(**host)
+                    self.storage.write()
+                    self.logger.info(
+                        f"iter {it + 1}/{max_iter} "
+                        + " ".join(f"{k}={v:.4g}" for k, v in sorted(host.items()))
+                    )
+                if (it + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or last:
+                    self.checkpointer.save(it + 1, self.state.state_dict())
+                if cfg.TEST.EVAL_PERIOD > 0 and (it + 1) % cfg.TEST.EVAL_PERIOD == 0:
+                    self.test()
+        finally:
+            if profiling is not None:
+                profiling.__exit__(None, None, None)
         self.logger.info("Training done.")
 
+    def test(self, test_dataset: Optional[str] = None, batch_size: Optional[int] = None):
+        """Score the current weights on `test_dataset` (default
+        DATASETS.TEST[0]) with standard NMS and COCO mAP, through
+        ``run_inference``; `batch_size` defaults to SOLVER.IMS_PER_BATCH.
+
+        The first call for a (dataset, batch) builds a test loader and a
+        predictor, which later calls reuse: each call copies the training
+        model's weights into the predictor's own model, which runs without
+        dropout in eval mode; the training model, its mode and the
+        generator that seeds its dropout are left as they were. Writes
+        eval/mAP, eval/AP50 and eval/num_detections to the event storage."""
+        cfg = self.cfg.clone()
+        cfg.PROBABILISTIC_INFERENCE.INFERENCE_MODE = "standard_nms"
+        cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.ENABLE = False
+        cfg.freeze()
+        test_dataset = test_dataset or cfg.DATASETS.TEST[0]
+        batch_size = cfg.SOLVER.IMS_PER_BATCH if batch_size is None else batch_size
+        key = (test_dataset, batch_size)
+        if key not in self._eval_cache:
+            loader = TestLoader(
+                get_dataset(test_dataset),
+                batch_size=batch_size,
+                min_size=cfg.INPUT.MIN_SIZE_TEST,
+                max_size=cfg.INPUT.MAX_SIZE_TEST,
+                divisibility=cfg.INPUT.SIZE_DIVISIBILITY,
+                num_workers=cfg.DATALOADER.NUM_WORKERS,
+                worker_backend=cfg.DATALOADER.WORKER_BACKEND,
+            )
+            predictor = build_predictor(cfg, loader.canvas, self.state.model.state_dict(),
+                                        device=self.device)
+            self._eval_cache[key] = (loader, predictor)
+        else:
+            loader, predictor = self._eval_cache[key]
+            predictor.model.load_state_dict(self.state.model.state_dict())
+        summary = apply_net.run_inference(
+            cfg, test_dataset, f"eval_iter_{self.state.step}", batch_size=batch_size,
+            run_metrics=False, run_map=True, verbose=False, loader=loader,
+            predictor=predictor, device=self.device,
+        )
+        self.storage.put_scalars(**{
+            "eval/mAP": summary["mAP"],
+            "eval/AP50": summary["AP50"],
+            "eval/num_detections": summary["num_detections"],
+        })
+        self.storage.write()
+        self.logger.info(f"eval @ iter {self.state.step}: mAP={summary['mAP']:.4f} "
+                         f"AP50={summary['AP50']:.4f}")
+        return summary
+
     def close(self) -> None:
+        """Release the train loader the trainer built and every cached eval
+        loader; the trainer is not used afterwards."""
+        if self._own_loader:
+            self.loader.close()
+        for loader, _ in self._eval_cache.values():
+            loader.close()
+        self._eval_cache.clear()
         self.storage.close()

@@ -207,7 +207,6 @@ def test_run_inference_needs_a_device_without_cuda(setup, tmp_path):
 @pytest.mark.parametrize("what,kw,opts", [
     ("batch_size='auto'", dict(batch_size="auto"), []),
     ("run_pdq", dict(run_pdq=True), []),
-    ("profile", dict(profile=True), []),
     ("INFERENCE_MODE 'ensembles'", {}, ["PROBABILISTIC_INFERENCE.INFERENCE_MODE", "ensembles"]),
     ("more than one process or device", {}, ["PARALLEL.NUM_DEVICES", 4]),
 ])
@@ -216,6 +215,17 @@ def test_unported_options_are_refused(tmp_path, what, kw, opts):
     cfg.merge_from_list(opts)
     with pytest.raises(NotImplementedError, match=what.split("'")[0]):
         run_inference(cfg, NAME, "standard_nms", device="cpu", **kw)
+
+
+def test_profile_traces_the_inference_loop(setup, tmp_path):
+    """``profile=True`` writes a torch.profiler trace of the loop into the
+    inference directory's ``profile/`` and changes nothing else."""
+    cfg, _ = _cfgs("standard_nms", tmp_path)
+    summary = run_inference(cfg, NAME, "standard_nms", device="cpu", params=setup[2],
+                            batch_size=4, profile=True, run_map=False, run_metrics=False)
+    assert summary["num_images"] == 8
+    traces = os.listdir(os.path.join(summary["inference_output_dir"], "profile"))
+    assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
 
 
 def test_resume_false_is_refused(tmp_path):

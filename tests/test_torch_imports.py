@@ -1,8 +1,9 @@
-"""The port stands alone: with jax, flax, optax, yaml, cv2, PIL and the
-JAX package made unimportable, every module of pod_compare_tpu_torch and
-chip_smoke.py imports, the data path writes, reads and resizes images and
-the evaluation path scores them, and the entry points refuse to run
-without CUDA unless they are given a device."""
+"""The port stands alone: with jax, flax, optax, yaml, PIL and the JAX
+package made unimportable, every module of pod_compare_tpu_torch and
+chip_smoke.py imports, the data path writes, reads and resizes images (with
+OpenCV, as the JAX package does) and the evaluation path scores them, and
+the entry points refuse to run without CUDA unless they are given a
+device."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ import textwrap
 import pod_compare_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "PIL", "pod_compare_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "PIL", "pod_compare_tpu")
 
 
 def _port_sources():
@@ -47,12 +48,15 @@ def test_every_module_imports_with_jax_and_its_package_blocked():
         )
     ]
     assert len(modules) >= 20
-    for name in ("cli.apply_net", "config.setup", "data.datasets", "data.image_io",
-                 "data.loader", "data.metadata", "data.synthetic", "evaluation.average_precision",
+    for name in ("cli.apply_net", "cli.convert_torch_checkpoint", "cli.train_net",
+                 "config.setup", "data.converters", "data.converters.common",
+                 "data.converters.convert_bdd_to_coco", "data.converters.convert_kitti_to_coco",
+                 "data.converters.convert_lyft_to_coco", "data.datasets", "data.loader",
+                 "data.metadata", "data.synthetic", "evaluation.average_precision",
                  "evaluation.calibration", "evaluation.calibration_errors",
                  "evaluation.category_mapping", "evaluation.coco_eval", "evaluation.matching",
                  "evaluation.probabilistic_metrics", "evaluation.scoring", "native",
-                 "utils.table"):
+                 "train.trainer", "utils.profiling", "utils.table"):
         assert f"pod_compare_tpu_torch.{name}" in modules, name
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
@@ -96,6 +100,29 @@ def test_every_module_imports_with_jax_and_its_package_blocked():
             assert "CUDA" in str(e)
         else:
             raise AssertionError("run_inference ran without CUDA and without a device")
+
+        import os, tempfile
+        from pod_compare_tpu_torch.cli import train_net
+        from pod_compare_tpu_torch.config import setup_arg_parser
+        from pod_compare_tpu_torch.train import Trainer
+        with tempfile.TemporaryDirectory() as out:
+            os.environ["POD_COMPARE_DATA_DIR"] = out
+            train_cfg = merge_configs(
+                "BDD-Detection/retinanet/retinanet_R_50_FPN_1x_reg_cls_var_dropout.yaml", "",
+                ["OUTPUT_DIR", out])
+            for name, call in (
+                ("Trainer(cfg)", lambda: Trainer(train_cfg)),
+                ("train_net.main", lambda: train_net.main(setup_arg_parser().parse_args(
+                    ["--config-file", "BDD-Detection/retinanet/"
+                     "retinanet_R_50_FPN_1x_reg_cls_var_dropout.yaml"]))),
+            ):
+                try:
+                    call()
+                except RuntimeError as e:
+                    assert "CUDA" in str(e), e
+                else:
+                    raise AssertionError(f"{name} ran without CUDA and without a device")
+            assert not os.listdir(out), os.listdir(out)  # nothing was set up first
 
         import tempfile
         from pod_compare_tpu_torch.data import TestLoader, get_dataset
