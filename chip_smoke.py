@@ -77,6 +77,24 @@ Phases, each printing its seconds on its own line as it ends:
      theirs. Loader-fed ms/step, Trainer.test seconds, peak device memory;
      TrainLoader alone with threads and with spawned processes (the same
      batches), and cv2 decode and resize ms per JPEG.
+ 11. modes: every file of configs/Inference/, bayes_od.yaml with
+     covariance intersection and the flagship with CLS_SAMPLING and
+     BOX_SAMPLING mc_iid (S = 10 and 1000), each through the predictor at
+     full width on the 736x1280 canvas, batch 2, bf16; the ensembles with
+     five members, the seeded weights with each head tensor moved by 2% in
+     noise from the member's seed, each tempered. Per mode: the dropout
+     launches of one call (400 with the MC bank, else 0), finite values,
+     PD covariances, boxes inside the image, a cluster of >= 2 members in
+     every image where the mode clusters; ms/batch (median of 5), peak
+     memory, head vs core/mode/merge ms, the card's busy share of a traced
+     call, and the greedy merge's clusters and ms. The mc_iid banks held by
+     law on image 0 (standardised errors of the class bank against the
+     exact sigmoid moments, of the sampled box decode against the
+     closed-form moments). Every mode but the sampled one against the CPU
+     at 128x128 in float32, M = 3: detections matched by class and IoU,
+     at most 1% flips, matched values within 1e-3. Then apply_net's main
+     on ensembles_post_nms over 8 of phase 9's PNGs, the five members
+     from their random_seed_<seed> sibling checkpoints.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 
 It needs a CUDA device and the repository around it; it exits non-zero
@@ -124,7 +142,15 @@ from pod_compare_tpu_torch.evaluation.coco_eval import COCOEvaluator
 from pod_compare_tpu_torch.evaluation.probabilistic_metrics import (
     evaluate_probabilistic_metrics,
 )
-from pod_compare_tpu_torch.inference import build_predictor, detections_to_json
+from pod_compare_tpu_torch.inference import (
+    build_predictor,
+    classification_probs,
+    detections_to_json,
+    pick_chunk,
+    probabilistic_inference_core,
+    sampled_box_moments,
+)
+from pod_compare_tpu_torch.inference import modes as pmodes
 from pod_compare_tpu_torch.models import (
     KernelDropout,
     TowerDropout,
@@ -134,6 +160,8 @@ from pod_compare_tpu_torch.models import (
     level_offsets,
 )
 from pod_compare_tpu_torch.ops import losses as plosses
+from pod_compare_tpu_torch.ops.boxes import decoded_box_moments, pairwise_iou
+from pod_compare_tpu_torch.ops.gaussian import covariance_output_to_cholesky
 from pod_compare_tpu_torch.ops.kernels import _build
 from pod_compare_tpu_torch.ops.kernels import dropout as kdropout
 from pod_compare_tpu_torch.ops.kernels import focal as kfocal
@@ -1506,6 +1534,398 @@ def run_train_net(seed: int, card: str, work: str):
     return launches
 
 
+# ------------------------------------------------------------ modes phase
+# Every file of configs/Inference/, bayes_od.yaml with covariance
+# intersection, and the flagship with the Monte-Carlo banks: (name,
+# inference config, overrides).
+MODE_CASES = [
+    ("standard_nms", "Inference/standard_nms.yaml", ()),
+    ("anchor_statistics", "Inference/anchor_statistics.yaml", ()),
+    ("bayes_od", "Inference/bayes_od.yaml", ()),
+    ("bayes_od_covariance_intersection", "Inference/bayes_od.yaml",
+     ("PROBABILISTIC_INFERENCE.BAYES_OD.BOX_MERGE_MODE", "covariance_intersection")),
+    ("bayes_od_mc_dropout", INFER_CFG, ()),
+    ("mc_dropout_ensembles_pre_nms", "Inference/mc_dropout_ensembles_pre_nms.yaml", ()),
+    ("mc_dropout_ensembles_post_nms", "Inference/mc_dropout_ensembles_post_nms.yaml", ()),
+    ("ensembles_pre_nms", "Inference/ensembles_pre_nms.yaml", ()),
+    ("ensembles_post_nms", "Inference/ensembles_post_nms.yaml", ()),
+    ("bayes_od_mc_dropout_mc_iid", INFER_CFG,
+     ("PROBABILISTIC_INFERENCE.CLS_SAMPLING", "mc_iid",
+      "PROBABILISTIC_INFERENCE.BOX_SAMPLING", "mc_iid")),
+]
+# Modes whose detections are clusters: each image must hold one of >= 2.
+CLUSTERED = {"anchor_statistics", "bayes_od", "bayes_od_covariance_intersection",
+             "bayes_od_mc_dropout", "mc_dropout_ensembles_post_nms", "ensembles_post_nms",
+             "bayes_od_mc_dropout_mc_iid"}
+MODE_TIMED_CALLS = 5
+MAX_MODE_FLIPS = 0.01  # share of detections the GPU and CPU may disagree on
+MODES_APPLY_IMAGES = 8  # of phase 9's 32 PNGs
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mode_config(infer: str, opts=()):
+    return merge_configs(TRAIN_CFG, infer, list(opts))
+
+
+def ensemble_members(cfg, state_dict, probe: torch.Tensor, device):
+    """One member per ENSEMBLES.RANDOM_SEED_NUMS seed: the given weights with
+    every head tensor moved by 2% of its spread in noise drawn from the
+    member's seed, then tempered like the flagship's. The members agree on
+    most objects, as members trained from different seeds do, so post-NMS
+    clusters form."""
+    members = []
+    for seed in cfg.PROBABILISTIC_INFERENCE.ENSEMBLES.RANDOM_SEED_NUMS:
+        gen = torch.Generator().manual_seed(int(seed))
+        sd = {k: v + 0.02 * float(v.std()) * torch.randn(v.shape, generator=gen)
+              if k.startswith("head.") and v.numel() > 1 else v
+              for k, v in state_dict.items()}
+        members.append({k: v.cpu() for k, v in temper_head(sd, cfg, probe, device).items()})
+    return members
+
+
+def mode_predictor(cfg, size, tempered, members, device):
+    if cfg.PROBABILISTIC_INFERENCE.INFERENCE_MODE == "ensembles":
+        return build_predictor(cfg, size, device=device, state_dicts=members)
+    return build_predictor(cfg, size, tempered, device=device)
+
+
+@contextlib.contextmanager
+def watch_greedy(record: dict, device):
+    """Count the clusters the post-NMS merge's greedy loop opens (one host
+    read-back each) and its time, for the length of the block."""
+    original = pmodes.greedy_sequential_clusters
+
+    def watched(*args, **kwargs):
+        sync(device)
+        t = time.perf_counter()
+        centers, members = original(*args, **kwargs)
+        sync(device)
+        record["ms"] += (time.perf_counter() - t) * 1e3
+        record["clusters"] += int(centers.sum())
+        record["calls"] += 1
+        return centers, members
+
+    pmodes.greedy_sequential_clusters = watched
+    try:
+        yield
+    finally:
+        pmodes.greedy_sequential_clusters = original
+
+
+def check_mode_detections(dets, output_sizes, min_cluster):
+    """Finite values, symmetric PD covariances, boxes inside the image, a
+    valid detection in every image and, with `min_cluster`, one fused from
+    at least that many members in every image."""
+    if min_cluster is not None:
+        return check_detections(dets, output_sizes, min_cluster)
+    return check_detections(dets._replace(cluster_size=torch.ones_like(dets.classes)),
+                            output_sizes, 1)
+
+
+def busy_share(call, device) -> float:
+    """Device busy time over wall time of one call traced with torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return busy_ms / wall_ms, wall_ms
+
+
+def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
+    """Phase 11, part 1: every mode at full width on the card. Returns each
+    mode's record (dropout launches of one call, ms/batch, peak memory,
+    stage split, traced busy share, greedy clusters)."""
+    images = torch.from_numpy(canvases(seed, canvas, BATCH)).to(device)
+    sizes = IMAGE_SIZES if canvas == CANVAS else np.array([canvas] * BATCH, np.float32)
+    flagship = mode_config(INFER_CFG)
+    sd = convert.from_jax_params(random_jax_params(seed, NUM_CLASSES))
+    probe = images[:1].cpu()
+    tempered = temper_head(sd, flagship, probe, device)
+    members = ensemble_members(flagship, sd, probe, device)
+    per_batch = (int(flagship.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * 2
+                 * flagship.MODEL.RETINANET.NUM_CONVS * len(flagship.MODEL.RETINANET.IN_FEATURES))
+    records = {}
+    for name, infer, opts in MODE_CASES:
+        cfg = mode_config(infer, opts)
+        predictor = mode_predictor(cfg, canvas, tempered, members, device)
+        call = lambda s: predictor(images, sizes, sizes, generator=torch.Generator().manual_seed(s))
+        expected = per_batch if cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.ENABLE else 0
+        greedy = {"ms": 0.0, "clusters": 0, "calls": 0}
+        sync(device)
+        kdropout.LAUNCHES = 0
+        with watch_greedy(greedy, device):
+            dets = call(seed)
+            sync(device)
+        launches = kdropout.LAUNCHES
+        if launches != expected:
+            raise AssertionError(f"{name}: {launches} dropout launches, expected {expected}")
+        n_valid, biggest = check_mode_detections(
+            dets, sizes, 2 if name in CLUSTERED else None)
+        if predictor.post_nms and greedy["calls"] != BATCH:
+            raise AssertionError(f"{name}: {greedy['calls']} merges for {BATCH} images")
+
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(MODE_TIMED_CALLS):
+            sync(device)
+            t = time.perf_counter()
+            call(seed + 1 + i)
+            sync(device)
+            times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        # Stage split of one more call: the head outputs of every run, then
+        # the per-image (or per-unit) core, mode, merge and rescale.
+        dropout_gen = torch.Generator().manual_seed(seed)
+        sync(device)
+        t0 = time.perf_counter()
+        if predictor.post_nms:
+            outs = predictor.run_outputs(images, dropout_gen)
+        else:
+            outs, run_deltas = predictor.head_outputs(images, dropout_gen)
+        sync(device)
+        t1 = time.perf_counter()
+        if predictor.post_nms:
+            predictor.detect_post_nms(outs, torch.as_tensor(sizes, device=device),
+                                      torch.as_tensor(sizes, device=device))
+        else:
+            predictor.detect(outs, run_deltas, torch.as_tensor(sizes, device=device),
+                             torch.as_tensor(sizes, device=device))
+        sync(device)
+        t2 = time.perf_counter()
+        share, traced_ms = busy_share(lambda: call(seed), device)
+        ms = float(np.median(times))
+        records[name] = dict(
+            launches=launches, ms=ms, times=times, peak_gib=peak / 2 ** 30,
+            head_ms=(t1 - t0) * 1e3, rest_ms=(t2 - t1) * 1e3, busy_share=share,
+            traced_ms=traced_ms, valid=n_valid, largest_cluster=biggest,
+            greedy_clusters=greedy["clusters"], greedy_ms=greedy["ms"])
+        log(f"modes {name}: {launches} dropout launches (expected {expected}), {n_valid} valid "
+            f"detections, largest cluster {biggest}; {ms:.2f} ms/batch median of "
+            f"{[round(t, 2) for t in times]}, head {records[name]['head_ms']:.2f} ms, core/mode/"
+            f"merge {records[name]['rest_ms']:.2f} ms, traced call {traced_ms:.2f} ms with the "
+            f"card busy {100 * share:.1f}% (host {100 * (1 - share):.1f}%), peak memory "
+            f"{peak / 2 ** 30:.3f} GiB"
+            + (f", greedy merge {greedy['clusters']} clusters (one read-back each) in "
+               f"{greedy['ms']:.2f} ms" if greedy["calls"] else "") + f" ({card})")
+        if name == "bayes_od_mc_dropout_mc_iid":
+            check_sampled_law(predictor, images, seed, card)
+        del predictor, dets
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return records, members
+
+
+def sigmoid_moments(logit: torch.Tensor, log_var: torch.Tensor):
+    """E[sigmoid(z)] and Var[sigmoid(z)], z ~ N(logit, exp(log_var)), by
+    64-node Gauss-Hermite quadrature in float64."""
+    nodes, weights = np.polynomial.hermite.hermgauss(64)
+    nodes = torch.as_tensor(np.sqrt(2.0) * nodes, dtype=torch.float64, device=logit.device)
+    weights = torch.as_tensor(weights / np.sqrt(np.pi), dtype=torch.float64, device=logit.device)
+    std = torch.exp(0.5 * log_var.double())
+    mean, second = 0, 0
+    for node, w in zip(nodes, weights):
+        s = torch.sigmoid(logit.double() + node * std)
+        mean = mean + w * s
+        second = second + w * s * s
+    return mean, (second - mean * mean).clamp_min(0.0)
+
+
+def z_stats(z: torch.Tensor):
+    return float(z.mean()), float(z.std()), float((z.abs() > 6).float().mean())
+
+
+def check_sampled_law(predictor, images, seed: int, card: str) -> None:
+    """Phase 11, the Monte-Carlo banks at full width, held by law: on image
+    0's head outputs, the mc_iid class bank (S = 10 per anchor and class)
+    against the exact mean and variance of the sigmoid, and the sampled box
+    decode (S = 1000, chunked) at the analytic core's candidates against
+    the closed-form decode moments; each as standardised errors z, whose
+    mean must be ~0 and spread ~1."""
+    kw = predictor.core_kwargs
+    outs, _ = predictor.head_outputs(images, torch.Generator().manual_seed(seed))
+    cls, var = outs["box_cls"][0], outs["box_cls_var"][0]
+    gen = torch.Generator(device=predictor.device).manual_seed(seed)
+    s_cls = kw["cls_num_samples"]
+    mc = classification_probs(cls, var, "mc_iid", s_cls, gen).double()
+    exact, variance = sigmoid_moments(cls, var)
+    se = torch.sqrt(variance / s_cls)
+    keep = se > 1e-5  # saturated sigmoids: float32 rounding, not sampling
+    zc = ((mc - exact) / se)[keep]
+
+    cands = probabilistic_inference_core(
+        predictor.anchors, cls, outs["box_delta"][0], var, outs["box_reg_var"][0], None,
+        **{**kw, "cls_sampling": "analytic", "box_sampling": "analytic"})
+    idx = cands.anchor_idx
+    deltas = outs["box_delta"][0][idx]
+    chol = covariance_output_to_cholesky(outs["box_reg_var"][0][idx])
+    anchors = predictor.anchors[idx]
+    s_box = kw["box_num_samples"]
+    chunk = pick_chunk(s_box, idx.shape[0])
+    mean_mc, cov_mc = sampled_box_moments(gen, deltas, chol, anchors, s_box,
+                                          kw["box_reg_weights"])
+    mean_a, cov_a = decoded_box_moments(deltas, chol @ chol.transpose(-1, -2), anchors,
+                                        kw["box_reg_weights"])
+    var_a = torch.diagonal(cov_a, dim1=-2, dim2=-1).double()
+    zm = ((mean_mc - mean_a).double() / torch.sqrt(var_a / s_box)).flatten()
+    zv = ((torch.diagonal(cov_mc, dim1=-2, dim2=-1).double() - var_a)
+          / (var_a * math.sqrt(2.0 / (s_box - 1)))).flatten()
+    stats = {"class bank": z_stats(zc), "box means": z_stats(zm), "box variances": z_stats(zv)}
+    log(f"modes mc_iid law: {int(keep.sum())} class probabilities (S = {s_cls}), "
+        f"{idx.shape[0]} candidates (S = {s_box} in {s_box // chunk} chunks of {chunk}); "
+        + "; ".join(f"{k} z mean {m:+.4f} std {sd:.4f}, |z| > 6 {100 * f:.4f}%"
+                    for k, (m, sd, f) in stats.items()) + f" ({card})")
+    bands = {"class bank": (0.02, 0.95, 1.05), "box means": (0.1, 0.85, 1.15),
+             "box variances": (0.2, 0.75, 1.5)}
+    for key, (m, sd, f) in stats.items():
+        max_mean, lo, hi = bands[key]
+        if not (abs(m) < max_mean and lo < sd < hi and f < 1e-3):
+            raise AssertionError(f"mc_iid {key}: z mean {m}, std {sd}, |z| > 6 share {f} "
+                                 f"outside |mean| < {max_mean}, {lo} < std < {hi}, < 1e-3")
+
+
+def match_detections(gpu, cpu):
+    """Per image, each CPU detection matched to an unmatched GPU detection of
+    its class at IoU > 0.99 in the output frame. Returns the matched index
+    pairs (batch, cpu, gpu) and the number of detections either side has
+    unmatched (flips)."""
+    pairs, flips = [], 0
+    for b in range(cpu.valid.shape[0]):
+        c_idx = torch.nonzero(cpu.valid[b]).flatten().tolist()
+        g_idx = torch.nonzero(gpu.valid[b]).flatten().tolist()
+        iou = pairwise_iou(cpu.boxes[b], gpu.boxes[b])
+        free = set(g_idx)
+        for i in c_idx:
+            best = max((j for j in free if int(gpu.classes[b, j]) == int(cpu.classes[b, i])),
+                       key=lambda j: float(iou[i, j]), default=None)
+            if best is not None and float(iou[i, best]) > 0.99:
+                pairs.append((b, i, best))
+                free.discard(best)
+            else:
+                flips += 1
+        flips += len(free)
+    return pairs, flips
+
+
+def check_modes_against_cpu(seed: int, card: str) -> None:
+    """Phase 11, part 2: every mode but the sampled one on the GPU against
+    its plain path on the CPU at 128x128 in float32, M = 3, same weights,
+    masks and members (the CUDA and CPU generators give different normals,
+    so the Monte-Carlo banks are held by law above instead). Detections are
+    matched by class and IoU; the unmatched count as flips, at most 1% of
+    the detections; matched values within 1e-3 of each box's or matrix's
+    largest entry."""
+    opts = ("PARALLEL.COMPUTE_DTYPE", "float32", "PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS", 3)
+    size = (128, 128)
+    images = torch.from_numpy(canvases(seed + 1, size, BATCH))
+    sizes = np.array([[128, 128]] * BATCH, np.float32)
+    flagship = mode_config(INFER_CFG, opts)
+    sd = convert.from_jax_params(random_jax_params(seed + 1, NUM_CLASSES))
+    tempered = temper_head(sd, flagship, images[:1], "cpu")
+    members = ensemble_members(flagship, sd, images[:1], "cpu")
+    summary = []
+    for name, infer, extra in MODE_CASES:
+        if "mc_iid" in name:
+            continue
+        cfg = mode_config(infer, tuple(opts) + tuple(extra))
+        dets = {}
+        for device in ("cuda", "cpu"):
+            predictor = mode_predictor(cfg, size, tempered, members, device)
+            out = predictor(images, sizes, sizes, generator=torch.Generator().manual_seed(seed))
+            dets[device] = type(out)(*[None if f is None else f.cpu() for f in out])
+        g, c = dets["cuda"], dets["cpu"]
+        pairs, flips = match_detections(g, c)
+        n = int(c.valid.sum())
+        if n == 0 or flips > MAX_MODE_FLIPS * n:
+            raise AssertionError(f"{name}: {flips} of {n} detections differ between GPU and CPU")
+        errs = {}
+        for field in ("boxes", "covs", "scores"):
+            a = torch.stack([getattr(g, field)[b, j] for b, _, j in pairs]).double()
+            r = torch.stack([getattr(c, field)[b, i] for b, i, _ in pairs]).double()
+            dims = tuple(range(1, r.dim()))
+            scale = r.abs().amax(dim=dims, keepdim=True) if dims else r.abs()
+            errs[field] = float(((a - r).abs() / scale.clamp_min(1e-6)).max())
+            if errs[field] > 1e-3:
+                raise AssertionError(f"{name}: {field} differ between GPU and CPU: {errs[field]}")
+        summary.append(f"{name} {len(pairs)}/{n} matched, {flips} flips, "
+                       + ", ".join(f"{k} {e:.1e}" for k, e in errs.items()))
+    log("modes reference (GPU vs CPU, 128x128 float32, max relative error): "
+        + "; ".join(summary) + f" ({card})")
+
+
+def run_modes_apply_net(seed: int, card: str, work: str, members) -> dict:
+    """Phase 11, part 3: apply_net's main on ensembles_post_nms with five
+    members from their random_seed_<seed> sibling checkpoints, over 8 of
+    phase 9's PNGs."""
+    src = os.path.join(work, "bdd")
+    root = os.path.join(work, "bdd_modes")
+    with open(os.path.join(src, "labels", "val_coco_format.json")) as f:
+        gt = json.load(f)
+    gt["images"] = gt["images"][:MODES_APPLY_IMAGES]
+    ids = {im["id"] for im in gt["images"]}
+    gt["annotations"] = [a for a in gt["annotations"] if a["image_id"] in ids]
+    os.makedirs(os.path.join(root, "labels"))
+    os.makedirs(os.path.join(root, "images", "100k", "val"))
+    with open(os.path.join(root, "labels", "val_coco_format.json"), "w") as f:
+        json.dump(gt, f)
+    for im in gt["images"]:
+        shutil.copy(os.path.join(src, "images", "100k", "val", im["file_name"]),
+                    os.path.join(root, "images", "100k", "val", im["file_name"]))
+
+    infer = "Inference/ensembles_post_nms.yaml"
+    cfg = mode_config(infer)
+    data = os.path.join(work, "data_modes")
+    os.environ["POD_COMPARE_DATA_DIR"] = data
+    config_dir = os.path.join(data, "BDD-Detection", "retinanet",
+                              os.path.splitext(os.path.basename(TRAIN_CFG))[0])
+    seeds = cfg.PROBABILISTIC_INFERENCE.ENSEMBLES.RANDOM_SEED_NUMS
+    for member_seed, member in zip(seeds, members):
+        Checkpointer(os.path.join(config_dir, f"random_seed_{member_seed}")).save(
+            0, {"model": member})
+    args = setup_arg_parser().parse_args(
+        ["--config-file", TRAIN_CFG, "--inference-config", infer, "--dataset-dir", root,
+         "--test-dataset", "bdd_val", "--random-seed", str(seeds[0])])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kdropout.LAUNCHES = 0
+    t = time.perf_counter()
+    summary = apply_net_main(args, batch_size=BATCH)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    if kdropout.LAUNCHES != 0:
+        raise AssertionError(f"{kdropout.LAUNCHES} dropout launches in the ensembles' apply_net")
+    with open(os.path.join(summary["inference_output_dir"], "coco_instances_results.json")) as f:
+        records = json.load(f)
+    if {r["image_id"] for r in records} != ids or summary["num_images"] != len(ids):
+        raise AssertionError("an image has no entry in the ensembles' json")
+    probs = np.array([r["cls_prob"] for r in records])
+    covs = np.array([r["bbox_covar"] for r in records])
+    if probs.shape != (len(records), NUM_CLASSES) or covs.shape != (len(records), 4, 4):
+        raise AssertionError(f"cls_prob {probs.shape} / bbox_covar {covs.shape} malformed")
+    if not (np.isfinite(probs).all() and np.linalg.eigvalsh(covs).min() > 0):
+        raise AssertionError("non-finite class probabilities or a covariance not PD")
+    check_metrics("ensembles json", summary, finite_only=False)
+    log(f"modes apply_net ensembles_post_nms: {len(seeds)} members from random_seed_"
+        f"{{{','.join(map(str, seeds))}}}, main {main_s:.2f} s: {summary['num_images']} images, "
+        f"{summary['num_detections']} detections, loader-fed {summary['images_per_second']:.2f} "
+        f"img/s at batch {BATCH} on {EVAL_CANVAS[0]}x{EVAL_CANVAS[1]}, evaluation "
+        f"{summary['evaluation_seconds']:.2f} s, mAP {summary['mAP']:.4f}, peak memory "
+        f"{peak / 2 ** 30:.3f} GiB ({card})")
+    shutil.rmtree(data, ignore_errors=True)
+    return dict(seconds=main_s, images_per_second=summary["images_per_second"],
+                peak_gib=peak / 2 ** 30)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1589,6 +2009,12 @@ def main() -> int:
         t0 = time.perf_counter()
         train_net_launches = run_train_net(args.seed, card, work)
         phase("train_net", t0)
+
+        t0 = time.perf_counter()
+        modes, members = run_modes(args.seed, card)
+        check_modes_against_cpu(args.seed, card)
+        run_modes_apply_net(args.seed, card, work, members)
+        phase("modes", t0)
     log(f"[total] {time.perf_counter() - t_all:.2f} s ({card})")
 
     kernels = [{
@@ -1621,6 +2047,7 @@ def main() -> int:
         "eval_bound_ms": k1["eval"]["bound_ms"],
         "eval_torch_dropout_ms": k1["eval"]["torch_dropout_ms"],
         "train_net_launches": train_net_launches["dropout"],
+        "modes_launches": {name: rec["launches"] for name, rec in modes.items()},
     }, {
         "name": "stochastic_focal_elem",
         "route": "cuda",

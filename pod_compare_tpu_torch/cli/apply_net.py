@@ -10,16 +10,17 @@ on disk goes through ``TestLoader`` and the predictor on the card, with one
 batch in flight, into ``coco_instances_results.json`` (the JAX CLI's
 schema, with ``cls_prob`` and ``bbox_covar``); then ``mAP_res.txt``, the
 probabilistic metrics and the calibration errors. The weights are the
-latest checkpoint under ``OUTPUT_DIR`` (``train/checkpoint.py``). It runs on
-CUDA unless the caller names a device, and raises without CUDA otherwise.
+latest checkpoint under ``OUTPUT_DIR`` (``train/checkpoint.py``); for the
+``ensembles`` mode, the latest checkpoint of each member, the sibling runs
+``random_seed_<seed>`` of ENSEMBLES.RANDOM_SEED_NUMS. It runs on CUDA
+unless the caller names a device, and raises without CUDA otherwise.
 
 ``profile=True`` traces the inference loop with ``torch.profiler`` into
 the inference directory's ``profile/``.
 
-Not ported yet, and refused with the ROADMAP item that ports it: the
-automatic batch size (C3), PDQ (C2), more than one process or device
-(B4), and the inference modes other than ``standard_nms`` and ``bayes_od``
-(A6/A7).
+Every inference mode of ``configs/Inference/`` runs. Not ported yet, and
+refused with the ROADMAP item that ports it: the automatic batch size
+(C3), PDQ (C2) and more than one process or device (B4).
 """
 
 import json
@@ -46,26 +47,33 @@ from pod_compare_tpu_torch.evaluation.probabilistic_metrics import (
 from pod_compare_tpu_torch.inference.core import Detections
 from pod_compare_tpu_torch.inference.postprocess import detections_to_json
 from pod_compare_tpu_torch.inference.predictor import build_predictor
-from pod_compare_tpu_torch.train.checkpoint import load_params
+from pod_compare_tpu_torch.train.checkpoint import load_ensemble_params, load_params
 from pod_compare_tpu_torch.utils.device import resolve_device
 from pod_compare_tpu_torch.utils.logging import setup_logger
 from pod_compare_tpu_torch.utils.profiling import trace
 
-PORTED_MODES = ("standard_nms", "bayes_od")
 _SEED_HIGH = 2 ** 63 - 1
 
 
-def _refuse_unported(cfg, batch_size, resume, params_list, mesh, run_pdq) -> None:
+def load_predictor_params(cfg):
+    """(state_dict, None) for single-model modes, (None, member state dicts)
+    for `ensembles`, from the latest checkpoints under cfg.OUTPUT_DIR or its
+    seed siblings."""
+    if cfg.PROBABILISTIC_INFERENCE.INFERENCE_MODE == "ensembles":
+        seeds = cfg.PROBABILISTIC_INFERENCE.ENSEMBLES.RANDOM_SEED_NUMS
+        return None, load_ensemble_params(cfg.OUTPUT_DIR, seeds)
+    return load_params(cfg.OUTPUT_DIR), None
+
+
+def _refuse_unported(cfg, batch_size, resume, mesh, run_pdq) -> None:
     if not resume:
         raise ValueError("apply_net: resume=False asks for a fresh run, but the weights are "
-                         "always `params` or the latest checkpoint under cfg.OUTPUT_DIR")
-    mode = cfg.PROBABILISTIC_INFERENCE.INFERENCE_MODE
+                         "always `params`/`params_list` or the latest checkpoints under "
+                         "cfg.OUTPUT_DIR")
     refusals = [
         (batch_size in ("auto", 0, None),
          "batch_size='auto' (a peak-memory guard, ROADMAP §1 C3)"),
         (run_pdq, "run_pdq (ROADMAP §1 C2)"),
-        (params_list is not None or mode not in PORTED_MODES,
-         f"INFERENCE_MODE {mode!r} (ROADMAP §1 A6/A7)"),
         (mesh is not None or cfg.PARALLEL.NUM_DEVICES not in (-1, 1)
          or (torch.distributed.is_available() and torch.distributed.is_initialized()
              and torch.distributed.get_world_size() > 1),
@@ -98,14 +106,16 @@ def run_inference(
     """Run the full inference + evaluation pipeline; returns a summary dict,
     the JAX CLI's keys and ``evaluation_seconds``.
 
-    `params` is a state dict in this package's names (default: the latest
-    checkpoint under cfg.OUTPUT_DIR). `loader`/`predictor` may be passed in
-    to reuse built ones; a predictor is called as
+    `params` is a state dict in this package's names and `params_list` one
+    per ensemble member (default: `load_predictor_params`).
+    `loader`/`predictor` may be passed in to reuse built ones; a predictor
+    is called as
     ``predictor(images, input_sizes, output_sizes, generator=...)``.
     `device` is where the predictor and the scoring rules run: CUDA unless
     given. `resume` is there for the JAX CLI's signature and must stay True:
-    there is no fresh run, the weights are `params` or the checkpoint."""
-    _refuse_unported(cfg, batch_size, resume, params_list, mesh, run_pdq)
+    there is no fresh run, the weights are `params`/`params_list` or the
+    checkpoints."""
+    _refuse_unported(cfg, batch_size, resume, mesh, run_pdq)
     device = resolve_device(device)
     logger = setup_logger(name="pod_compare_tpu_torch")
     output_dir = inference_output_dir(cfg, test_dataset, inference_name)
@@ -123,9 +133,10 @@ def run_inference(
             worker_backend=cfg.DATALOADER.WORKER_BACKEND,
         )
     if predictor is None:
-        if params is None:
-            params = load_params(cfg.OUTPUT_DIR)
-        predictor = build_predictor(cfg, loader.canvas, params, device=device)
+        if params is None and params_list is None:
+            params, params_list = load_predictor_params(cfg)
+        predictor = build_predictor(cfg, loader.canvas, params, device=device,
+                                    state_dicts=params_list)
 
     train_dataset = cfg.DATASETS.TRAIN[0]
     cat_mapping = model_to_dataset_id_map(train_dataset, test_dataset)

@@ -1,11 +1,18 @@
-"""Per-image probabilistic anchorwise inference core (analytic sampling).
+"""Per-image probabilistic anchorwise inference core.
 
 Counterpart of ``pod_compare_tpu/inference/core.py``: class probabilities
 from the predicted logit Gaussians, a per-level top-k of candidates, their
-closed-form decode moments, and the epistemic box covariance across
+box means and covariances, and the epistemic box covariance across
 stochastic runs. Shapes stay fixed: the top-k is padded and carries a
-validity mask. This slice ports the default ``analytic`` sampling; the
-Monte-Carlo banks (``mc_iid``, ``mc_shared``) come later and raise here.
+validity mask.
+
+Sampling (``CLS_SAMPLING``, ``BOX_SAMPLING``): ``analytic`` (Gauss-Hermite
+class probabilities, closed-form decode moments; no random numbers),
+``mc_iid`` (the reference's semantics: iid normals per anchor and class,
+per candidate and sample) and ``mc_shared`` (one bank of normals shared
+across anchors or candidates: the same marginal law per anchor). The
+Monte-Carlo banks draw from a ``torch.Generator`` on the tensors' device;
+their bits differ from the JAX package's threefry bits, their law does not.
 """
 
 from typing import NamedTuple, Optional, Sequence
@@ -17,9 +24,11 @@ from pod_compare_tpu_torch.ops.boxes import (
     decode_deltas,
     decoded_box_mean,
     decoded_box_moments,
+    decode_delta_samples,
 )
 from pod_compare_tpu_torch.ops.gaussian import (
     covariance_output_to_cholesky,
+    mvn_sample,
     sample_mean_covariance,
 )
 
@@ -70,19 +79,40 @@ class Candidates(NamedTuple):
     anchor_idx: Optional[torch.Tensor] = None
 
 
+# Largest (chunk, C, 4) bank of box samples the sampled decode holds at once.
+BOX_SAMPLE_CHUNK_ELEMS = 1 << 21
+SAMPLING_IMPLS = ("analytic", "mc_iid", "mc_shared")
+
+
+def _normal(generator: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=generator, dtype=like.dtype, device=like.device)
+
+
 def classification_probs(
     box_cls: torch.Tensor,
     box_cls_var: Optional[torch.Tensor],
     impl: str = "analytic",
+    num_samples: int = 0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Mean sigmoid probability under the logit Gaussian N(logit, exp(var)):
-    32-node Gauss-Hermite quadrature (the S -> inf limit of the JAX
-    package's Monte-Carlo banks). Without a variance head, the sigmoid."""
+    """Mean sigmoid probability under the logit Gaussian N(logit, exp(var)).
+
+    impl 'analytic': 32-node Gauss-Hermite quadrature (the S -> inf limit
+    of both banks); 'mc_iid': the mean over `num_samples` iid normals per
+    (anchor, class); 'mc_shared': one (S, 1, K) bank shared across anchors.
+    Without a variance head, the sigmoid."""
     if box_cls_var is None:
         return torch.sigmoid(box_cls)
-    if impl != "analytic":
-        raise NotImplementedError(f"CLS_SAMPLING={impl!r} is not ported yet; use 'analytic'")
+    if impl not in SAMPLING_IMPLS:
+        raise ValueError(f"Invalid CLS_SAMPLING {impl!r}")
     std = torch.sqrt(torch.exp(box_cls_var))
+    if impl != "analytic":
+        if impl == "mc_shared":
+            shape = (num_samples,) + (1,) * (box_cls.dim() - 1) + tuple(box_cls.shape[-1:])
+        else:
+            shape = (num_samples,) + tuple(box_cls.shape)
+        noise = _normal(generator, shape, box_cls)
+        return torch.sigmoid(box_cls[None] + noise * std[None]).mean(dim=0)
     nodes, weights = np.polynomial.hermite.hermgauss(32)
     nodes = torch.as_tensor(np.sqrt(2.0) * nodes, dtype=box_cls.dtype, device=box_cls.device)
     weights = torch.as_tensor(
@@ -118,6 +148,52 @@ def topk_candidates(
     return torch.cat(scores_parts), torch.cat(idx_parts)
 
 
+def pick_chunk(num_samples: int, num_candidates: int) -> int:
+    """Largest divisor of `num_samples` keeping a (chunk, C, 4) bank of box
+    samples under BOX_SAMPLE_CHUNK_ELEMS elements."""
+    limit = max(1, BOX_SAMPLE_CHUNK_ELEMS // max(4 * num_candidates, 1))
+    if num_samples <= limit:
+        return num_samples
+    for c in range(limit, 0, -1):
+        if num_samples % c == 0:
+            return c
+    return 1
+
+
+def sampled_box_moments(
+    generator: torch.Generator,
+    deltas: torch.Tensor,
+    chol: torch.Tensor,
+    anchors: torch.Tensor,
+    num_samples: int,
+    weights=(1.0, 1.0, 1.0, 1.0),
+    shared: bool = False,
+):
+    """Mean and unbiased (divisor S-1) covariance of the boxes decoded from
+    `num_samples` delta samples deltas + L z per candidate, drawn in chunks
+    (`pick_chunk`). Residuals are summed against the deterministic decode,
+    so the sums stay small in float32. With `shared`, every candidate uses
+    the same (chunk, 4) normals. (C, 4), (C, 4, 4) -> (C, 4), (C, 4, 4)."""
+    num_cand = deltas.shape[0]
+    chunk = pick_chunk(num_samples, num_cand)
+    center = decode_deltas(deltas, anchors, weights)
+    resid_sum = torch.zeros_like(center)
+    outer_sum = center.new_zeros((num_cand, 4, 4))
+    for _ in range(num_samples // chunk):
+        if shared:
+            z = _normal(generator, (chunk, 4), deltas)
+            samples = deltas[None] + torch.einsum("cij,sj->sci", chol, z)
+        else:
+            samples = mvn_sample(generator, deltas, chol, chunk)
+        resid = decode_delta_samples(samples, anchors, weights) - center[None]
+        resid_sum = resid_sum + resid.sum(dim=0)
+        outer_sum = outer_sum + torch.einsum("sci,scj->cij", resid, resid)
+    n = float(num_samples)
+    resid_mean = resid_sum / n
+    covs = (outer_sum - n * torch.einsum("ci,cj->cij", resid_mean, resid_mean)) / max(n - 1.0, 1.0)
+    return center + resid_mean, covs
+
+
 def probabilistic_inference_core(
     anchors: torch.Tensor,
     box_cls: torch.Tensor,
@@ -132,6 +208,9 @@ def probabilistic_inference_core(
     level_sizes: Optional[Sequence[int]] = None,
     cls_sampling: str = "analytic",
     box_sampling: str = "analytic",
+    cls_num_samples: int = 0,
+    box_num_samples: int = 0,
+    generator: Optional[torch.Generator] = None,
     defer_covariance: bool = False,
 ) -> Candidates:
     """Single-image anchorwise probabilistic inference.
@@ -144,15 +223,19 @@ def probabilistic_inference_core(
         run_deltas: optional (M, R, 4) per-run deltas; their decoded spread
             is the epistemic box covariance.
         topk: candidates per level; level_sizes: per-level anchor counts.
-        defer_covariance: compute only the decode means (for NMS-first
-            paths that rebuild covariances of the survivors through
-            `deferred_covariance`).
+        cls_sampling/box_sampling: 'analytic', 'mc_iid' or 'mc_shared'
+            (`classification_probs`, `sampled_box_moments`), with
+            cls_num_samples/box_num_samples draws from `generator`, a
+            generator on the tensors' device (the class bank is drawn
+            first, then the box bank).
+        defer_covariance: compute only the analytic decode means (for
+            NMS-first paths that rebuild covariances of the survivors
+            through `deferred_covariance`).
     """
-    if box_reg_var is not None and box_sampling != "analytic":
-        raise NotImplementedError(
-            f"BOX_SAMPLING={box_sampling!r} is not ported yet; use 'analytic'"
-        )
-    probs = classification_probs(box_cls, box_cls_var, impl=cls_sampling)
+    if box_sampling not in SAMPLING_IMPLS:
+        raise ValueError(f"Invalid BOX_SAMPLING {box_sampling!r}")
+    probs = classification_probs(box_cls, box_cls_var, cls_sampling, cls_num_samples,
+                                 generator)
     scores_all = probs.amax(dim=1)
     classes_all = probs.argmax(dim=1)  # ties to the lower class, as jnp.argmax
     top_scores, top_idx = topk_candidates(scores_all, topk, level_sizes)
@@ -168,7 +251,8 @@ def probabilistic_inference_core(
         run_boxes = decode_deltas(run_deltas[:, top_idx, :], sel_anchors, box_reg_weights)
         _, epistemic_cov = sample_mean_covariance(run_boxes)
 
-    if box_reg_var is not None and defer_covariance and epistemic_cov is None:
+    analytic = box_sampling == "analytic"
+    if box_reg_var is not None and analytic and defer_covariance and epistemic_cov is None:
         chol = covariance_output_to_cholesky(box_reg_var[top_idx])
         diag = torch.einsum("cij,cij->ci", chol, chol)
         boxes = decoded_box_mean(sel_deltas, diag, sel_anchors, box_reg_weights)
@@ -176,8 +260,15 @@ def probabilistic_inference_core(
         has_cov = False
     elif box_reg_var is not None:
         chol = covariance_output_to_cholesky(box_reg_var[top_idx])
-        delta_cov = torch.einsum("cij,ckj->cik", chol, chol)
-        boxes, covs = decoded_box_moments(sel_deltas, delta_cov, sel_anchors, box_reg_weights)
+        if analytic:
+            delta_cov = torch.einsum("cij,ckj->cik", chol, chol)
+            boxes, covs = decoded_box_moments(sel_deltas, delta_cov, sel_anchors,
+                                              box_reg_weights)
+        else:
+            boxes, covs = sampled_box_moments(
+                generator, sel_deltas, chol, sel_anchors, box_num_samples, box_reg_weights,
+                shared=box_sampling == "mc_shared",
+            )
         if epistemic_cov is not None:
             covs = covs + epistemic_cov
         has_cov = True

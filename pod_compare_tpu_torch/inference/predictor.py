@@ -1,20 +1,25 @@
 """Probabilistic predictor: the inference pipeline on one device.
 
-Counterpart of ``pod_compare_tpu/inference/predictor.py`` for the
-single-model and MC-dropout-bank paths of the pre-NMS modes
-(``standard_nms``, ``bayes_od``). One call runs
+Counterpart of ``pod_compare_tpu/inference/predictor.py`` for every
+INFERENCE_MODE of ``configs/Inference/``. One call runs
 
-  uint8 canvas -> normalize -> R50 + FPN (once)
-  -> head: once, or M times with dropout (the first tower conv once)
-  -> mean head outputs and per-run deltas
-  -> per image: candidate core -> mode -> rescale
+  uint8 canvas -> normalize -> R50 + FPN
+  -> head outputs of every run:
+       one model, the head once;
+       MC dropout, backbone and first tower conv once, the rest M times;
+       ensembles, each member's whole forward without dropout
+  -> pre-NMS modes: mean outputs and per-run deltas, then per image the
+     candidate core and the mode (standard_nms, anchor_statistics,
+     bayes_od; the pre-NMS MC-dropout and ensemble modes are standard_nms)
+  -> post-NMS modes: per (image, run) the core and standard_nms, then per
+     image the runs' detections, run-major, through black_box_merge
+  -> rescale.
 
-PyTorch runs eagerly; nothing in the pipeline reads a value back to the
-host. The predictor runs on CUDA unless given another device, and raises
-when CUDA is absent and no device was given.
+PyTorch runs eagerly. The predictor runs on CUDA unless given another
+device, and raises when CUDA is absent and no device was given.
 """
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -35,10 +40,22 @@ from pod_compare_tpu_torch.models import (
 from pod_compare_tpu_torch.utils.device import resolve_device
 
 _SEED_HIGH = 2 ** 63 - 1
+MODES = ("standard_nms", "anchor_statistics", "bayes_od", "mc_dropout_ensembles", "ensembles")
 
 
 def _draw_seeds(generator: torch.Generator, shape) -> torch.Tensor:
     return torch.randint(0, _SEED_HIGH, shape, generator=generator, dtype=torch.int64)
+
+
+def _stack(runs):
+    """Stack a list of output dicts on a new leading axis (None stays None)."""
+    return {k: None if runs[0][k] is None else torch.stack([r[k] for r in runs]) for k in runs[0]}
+
+
+def _stack_images(per_image: List[Detections]) -> Detections:
+    return Detections(*[
+        None if field[0] is None else torch.stack(field) for field in zip(*per_image)
+    ])
 
 
 class ProbabilisticPredictor:
@@ -49,34 +66,44 @@ class ProbabilisticPredictor:
         image_size: network input (H, W) after resize and padding.
         state_dict: model weights in this package's (detectron2) names.
         device: torch device; None means CUDA.
+        state_dicts: for the `ensembles` mode, one state dict per member,
+            in the order of ENSEMBLES.RANDOM_SEED_NUMS (`state_dict` unused).
 
     On CUDA the constructor sets ``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` to False, process-wide, so that
     float32 convolutions and products run in full float32 as on the CPU.
+    ``SPLIT_HEAD_PROGRAM`` lays out XLA programs in the JAX package; here it
+    changes nothing, but it is refused where the JAX package refuses it.
     """
 
-    def __init__(self, cfg, image_size: Sequence[int], state_dict, device=None):
-        head_quant = cfg.PROBABILISTIC_INFERENCE.HEAD_QUANT
-        if head_quant != "none":
-            raise NotImplementedError(f"HEAD_QUANT={head_quant!r} is not ported yet")
+    def __init__(self, cfg, image_size: Sequence[int], state_dict=None, device=None,
+                 state_dicts=None):
+        pi = cfg.PROBABILISTIC_INFERENCE
+        if pi.HEAD_QUANT != "none":
+            raise NotImplementedError(f"HEAD_QUANT={pi.HEAD_QUANT!r} is not ported yet")
+        self.mode = pi.INFERENCE_MODE
+        if self.mode not in MODES:
+            raise ValueError(f"Invalid inference mode {self.mode}.")
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.image_size = tuple(int(s) for s in image_size)
-        self.model = build_model(cfg)
-        self.model.load_state_dict(state_dict)
-        self.model.cast_convs().to(self.device).eval()
+        if self.mode == "ensembles":
+            if not state_dicts:
+                raise ValueError("ensembles mode needs one state dict per member (state_dicts)")
+            self.models = [self._load(sd) for sd in state_dicts]
+        else:
+            if state_dict is None:
+                raise ValueError(f"{self.mode} needs the model's state_dict")
+            self.models = [self._load(state_dict)]
+        self.model = self.models[0]
 
         gen = build_anchor_generator(cfg)
         self.anchors = torch.as_tensor(gen.concatenated(self.image_size), device=self.device)
         self.level_sizes = tuple(a.shape[0] for a in gen.per_level(self.image_size))
 
-        pi = cfg.PROBABILISTIC_INFERENCE
-        self.mode = pi.INFERENCE_MODE
-        if self.mode not in ("standard_nms", "bayes_od"):
-            raise NotImplementedError(f"INFERENCE_MODE={self.mode!r} is not ported yet")
         self.mc_enabled = bool(pi.MC_DROPOUT.ENABLE)
         self.num_runs = int(pi.MC_DROPOUT.NUM_RUNS) if self.mc_enabled else 1
         self.batch_shared_masks = bool(pi.MC_DROPOUT.BATCH_SHARED_MASKS)
@@ -85,10 +112,25 @@ class ProbabilisticPredictor:
                 "MC_DROPOUT.ENABLE requires a model trained with dropout "
                 "(MODEL.PROBABILISTIC_MODELING.DROPOUT_RATE > 0)."
             )
+        self.is_multi = self.mode == "ensembles" or (self.mc_enabled and self.num_runs > 1)
+        merge = {"mc_dropout_ensembles": pi.ENSEMBLES_DROPOUT.BOX_MERGE_MODE,
+                 "ensembles": pi.ENSEMBLES.BOX_MERGE_MODE}.get(self.mode)
+        self.post_nms = merge == "post_nms"
+        if pi.SPLIT_HEAD_PROGRAM and (self.post_nms or not self.is_multi):
+            raise ValueError(
+                "PROBABILISTIC_INFERENCE.SPLIT_HEAD_PROGRAM only applies to multi-run "
+                "pre-NMS pipelines (MC dropout or ensembles with pre-NMS/fusion merge)."
+            )
+        if self.post_nms and not self.is_multi:
+            raise ValueError(
+                f"{self.mode} with post_nms merge needs several runs "
+                "(MC_DROPOUT.ENABLE with NUM_RUNS > 1)"
+            )
         rc = cfg.MODEL.RETINANET
         self.nms_thresh = float(rc.NMS_THRESH_TEST)
         self.max_dets = int(cfg.TEST.DETECTIONS_PER_IMAGE)
         self.affinity = float(pi.AFFINITY_THRESHOLD)
+        pm = cfg.MODEL.PROBABILISTIC_MODELING
         self.core_kwargs = dict(
             topk=int(rc.TOPK_CANDIDATES_TEST),
             level_sizes=self.level_sizes,
@@ -96,28 +138,25 @@ class ProbabilisticPredictor:
             box_reg_weights=tuple(rc.BBOX_REG_WEIGHTS),
             cls_sampling=pi.CLS_SAMPLING,
             box_sampling=pi.BOX_SAMPLING,
+            cls_num_samples=int(pm.CLS_VAR_LOSS.NUM_SAMPLES),
+            box_num_samples=int(pm.BBOX_COV_LOSS.NUM_SAMPLES),
         )
+        self.sampled = pi.CLS_SAMPLING != "analytic" or pi.BOX_SAMPLING != "analytic"
+
+    def _load(self, state_dict):
+        model = build_model(self.cfg)
+        model.load_state_dict(state_dict)
+        return model.cast_convs().to(self.device).eval()
 
     # ------------------------------------------------------------ stages
-    @torch.no_grad()
-    def head_outputs(
-        self,
-        images: torch.Tensor,
-        dropout_gen: Optional[torch.Generator] = None,
-        tower_dropouts: Optional[Sequence[TowerDropout]] = None,
-    ):
-        """Backbone once, head once or M times. Returns (outputs, run_deltas):
-        outputs of (B, R, k) float32 tensors, averaged over runs when there
-        are several, and the (M, B, R, 4) per-run deltas (None for one run).
-
-        The M dropout passes draw their masks with the dropout kernel from
-        seeds of `dropout_gen`, unless `tower_dropouts` gives one
-        `TowerDropout` per run (the tests inject the JAX package's masks)."""
+    def _runs(self, images, dropout_gen, tower_dropouts) -> List[dict]:
+        if self.mode == "ensembles":
+            return [model(images) for model in self.models]
         model = self.model
         feats = model.backbone_features(images)
         prefix = model.head.prefix(feats)
-        if not (self.mc_enabled and self.num_runs > 1):
-            return model.head.rest(prefix), None
+        if not self.is_multi:
+            return [model.head.rest(prefix)]
         if tower_dropouts is None:
             offsets = level_offsets(feats, self.batch_shared_masks)
             seeds = _draw_seeds(dropout_gen, (self.num_runs, 2, model.head.num_convs)).tolist()
@@ -125,38 +164,99 @@ class ProbabilisticPredictor:
                 KernelDropout(s, model.dropout_rate, offsets, self.batch_shared_masks)
                 for s in seeds
             ]
-        runs = [model.head.rest(prefix, td) for td in tower_dropouts]
-        mean = {
-            k: None if runs[0][k] is None else torch.stack([r[k] for r in runs]).mean(dim=0)
-            for k in runs[0]
-        }
-        return mean, torch.stack([r["box_delta"] for r in runs])
+        return [model.head.rest(prefix, td) for td in tower_dropouts]
+
+    @torch.no_grad()
+    def run_outputs(
+        self,
+        images: torch.Tensor,
+        dropout_gen: Optional[torch.Generator] = None,
+        tower_dropouts: Optional[Sequence[TowerDropout]] = None,
+    ):
+        """Every run's head outputs stacked on a leading run axis: (M, B, R, k)
+        float32 tensors (None for a head the model lacks). M is the number
+        of ensemble members, of MC-dropout runs, or 1.
+
+        The MC-dropout runs draw their masks with the dropout kernel from
+        seeds of `dropout_gen`, unless `tower_dropouts` gives one
+        `TowerDropout` per run (the tests inject the JAX package's masks)."""
+        return _stack(self._runs(images, dropout_gen, tower_dropouts))
+
+    @torch.no_grad()
+    def head_outputs(
+        self,
+        images: torch.Tensor,
+        dropout_gen: Optional[torch.Generator] = None,
+        tower_dropouts: Optional[Sequence[TowerDropout]] = None,
+    ):
+        """(outputs, run_deltas): outputs of (B, R, k) float32 tensors,
+        averaged over the runs when there are several, and the (M, B, R, 4)
+        per-run deltas (None for one run). Arguments as `run_outputs`."""
+        runs = self._runs(images, dropout_gen, tower_dropouts)
+        if not self.is_multi:
+            return runs[0], None
+        stacked = _stack(runs)
+        mean = {k: None if v is None else v.mean(dim=0) for k, v in stacked.items()}
+        return mean, stacked["box_delta"]
 
     def _mode(self, cands):
-        if self.mode == "standard_nms":
-            return M.standard_nms(cands, self.nms_thresh, self.max_dets)
-        bod = self.cfg.PROBABILISTIC_INFERENCE.BAYES_OD
-        return M.bayes_od(
-            cands, self.nms_thresh, self.max_dets, self.affinity,
-            bod.BOX_MERGE_MODE, bod.CLS_MERGE_MODE,
+        if self.mode == "anchor_statistics":
+            return M.anchor_statistics(cands, self.nms_thresh, self.max_dets, self.affinity)
+        if self.mode == "bayes_od":
+            bod = self.cfg.PROBABILISTIC_INFERENCE.BAYES_OD
+            return M.bayes_od(
+                cands, self.nms_thresh, self.max_dets, self.affinity,
+                bod.BOX_MERGE_MODE, bod.CLS_MERGE_MODE,
+            )
+        # standard_nms, and the pre-NMS MC-dropout and ensemble merges
+        return M.standard_nms(cands, self.nms_thresh, self.max_dets)
+
+    def _generators(self, generator: Optional[torch.Generator], batch: int, runs: int = 0):
+        """Sampling generators on the device, one per image (or per (image,
+        run) when `runs`), seeded from the CPU `generator` (default: seeded
+        with 0): image b's seed, then for post-NMS units M seeds drawn from
+        it, as the JAX package splits each image's key into M. Nones when
+        nothing is sampled."""
+        if not self.sampled:
+            return [[None] * runs if runs else None for _ in range(batch)]
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        device_gen = lambda s: torch.Generator(device=self.device).manual_seed(s)
+        gens = []
+        for seed in _draw_seeds(generator, (batch,)).tolist():
+            if runs:
+                unit_seeds = _draw_seeds(torch.Generator().manual_seed(seed), (runs,)).tolist()
+                gens.append([device_gen(s) for s in unit_seeds])
+            else:
+                gens.append(device_gen(seed))
+        return gens
+
+    def _rescale(self, dets, b, input_sizes, output_sizes):
+        return detector_postprocess(
+            dets, input_sizes[b, 0], input_sizes[b, 1], output_sizes[b, 0], output_sizes[b, 1],
         )
 
     @torch.no_grad()
-    def detect(self, outs, run_deltas, input_sizes, output_sizes) -> Detections:
-        """Per-image candidate core, mode and rescale; batched Detections."""
+    def detect(self, outs, run_deltas, input_sizes, output_sizes,
+               generator: Optional[torch.Generator] = None) -> Detections:
+        """Pre-NMS modes: per-image candidate core, mode and rescale on the
+        (mean) outputs of `head_outputs`; batched Detections. `generator`
+        seeds the sampling generators (`_generators`)."""
         defer = (
             run_deltas is None
             and self.mode == "standard_nms"
             and self.core_kwargs["box_sampling"] == "analytic"
         )
+        batch = outs["box_cls"].shape[0]
+        gens = self._generators(generator, batch)
         per_image = []
-        for b in range(outs["box_cls"].shape[0]):
+        for b in range(batch):
             pick = lambda t: None if t is None else t[b]
             cands = probabilistic_inference_core(
                 self.anchors, outs["box_cls"][b], outs["box_delta"][b],
                 pick(outs["box_cls_var"]), pick(outs["box_reg_var"]),
                 None if run_deltas is None else run_deltas[:, b],
-                defer_covariance=defer, **self.core_kwargs,
+                generator=gens[b], defer_covariance=defer, **self.core_kwargs,
             )
             dets = self._mode(cands)
             if defer and outs["box_reg_var"] is not None:
@@ -164,15 +264,41 @@ class ProbabilisticPredictor:
                     dets, outs["box_delta"][b], outs["box_reg_var"][b], self.anchors,
                     self.core_kwargs["box_reg_weights"],
                 )
-            per_image.append(
-                detector_postprocess(
-                    dets, input_sizes[b, 0], input_sizes[b, 1],
-                    output_sizes[b, 0], output_sizes[b, 1],
+            per_image.append(self._rescale(dets, b, input_sizes, output_sizes))
+        return _stack_images(per_image)
+
+    @torch.no_grad()
+    def detect_post_nms(self, run_outs, input_sizes, output_sizes,
+                        generator: Optional[torch.Generator] = None) -> Detections:
+        """Post-NMS modes on the stacked outputs of `run_outputs`: each
+        (image, run) unit through the core, standard NMS and the deferred
+        covariance; each image's units concatenated run-major (run 0's
+        max_dets detections first) through `black_box_merge`; rescale."""
+        num_runs, batch = run_outs["box_cls"].shape[:2]
+        gens = self._generators(generator, batch, num_runs)
+        defer = self.core_kwargs["box_sampling"] == "analytic"
+        per_image = []
+        for b in range(batch):
+            units = []
+            for m in range(num_runs):
+                unit = {k: None if v is None else v[m, b] for k, v in run_outs.items()}
+                cands = probabilistic_inference_core(
+                    self.anchors, unit["box_cls"], unit["box_delta"], unit["box_cls_var"],
+                    unit["box_reg_var"], None, generator=gens[b][m], defer_covariance=defer,
+                    **self.core_kwargs,
                 )
+                dets = M.standard_nms(cands, self.nms_thresh, self.max_dets)
+                if defer and unit["box_reg_var"] is not None:
+                    dets = deferred_covariance(
+                        dets, unit["box_delta"], unit["box_reg_var"], self.anchors,
+                        self.core_kwargs["box_reg_weights"],
+                    )
+                units.append(dets)
+            merged = M.black_box_merge(
+                M.concatenate_detections(units), self.nms_thresh, self.max_dets, self.affinity,
             )
-        return Detections(*[
-            None if field[0] is None else torch.stack(field) for field in zip(*per_image)
-        ])
+            per_image.append(self._rescale(merged, b, input_sizes, output_sizes))
+        return _stack_images(per_image)
 
     # ------------------------------------------------------------ API
     def __call__(
@@ -199,16 +325,22 @@ class ProbabilisticPredictor:
         """
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        dropout_seed, _sampling_seed = _draw_seeds(generator, (2,)).tolist()
+        dropout_seed, sampling_seed = _draw_seeds(generator, (2,)).tolist()
         dropout_gen = torch.Generator().manual_seed(dropout_seed)
+        sampling_gen = torch.Generator().manual_seed(sampling_seed)
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         sizes = lambda s: torch.as_tensor(s, dtype=torch.float32, device=self.device)
+        if self.post_nms:
+            return self.detect_post_nms(self.run_outputs(images, dropout_gen),
+                                        sizes(input_sizes), sizes(output_sizes), sampling_gen)
         outs, run_deltas = self.head_outputs(images, dropout_gen)
-        return self.detect(outs, run_deltas, sizes(input_sizes), sizes(output_sizes))
+        return self.detect(outs, run_deltas, sizes(input_sizes), sizes(output_sizes),
+                           sampling_gen)
 
 
-def build_predictor(cfg, image_size, state_dict, device=None) -> ProbabilisticPredictor:
+def build_predictor(cfg, image_size, state_dict=None, device=None,
+                    state_dicts=None) -> ProbabilisticPredictor:
     """Dispatch on the meta-architecture, as the JAX `build_predictor` does."""
     if cfg.MODEL.META_ARCHITECTURE in ("ProbabilisticRetinaNet", "RetinaNet"):
-        return ProbabilisticPredictor(cfg, image_size, state_dict, device)
+        return ProbabilisticPredictor(cfg, image_size, state_dict, device, state_dicts)
     raise ValueError(f"Invalid meta-architecture {cfg.MODEL.META_ARCHITECTURE}.")

@@ -174,6 +174,16 @@ def decoded_box_mean(
     )[0]
 
 
+def decode_delta_samples(
+    delta_samples: torch.Tensor,
+    anchors: torch.Tensor,
+    weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0),
+) -> torch.Tensor:
+    """Decode an (S, N, 4) bank of delta samples on (N, 4) anchors into
+    (S, N, 4) XYXY boxes (the anchors broadcast over the sample axis)."""
+    return decode_deltas(delta_samples, anchors[None], weights)
+
+
 def clip_boxes(boxes: torch.Tensor, height, width) -> torch.Tensor:
     """Clip XYXY boxes to [0, W] x [0, H]; sizes may be tensors."""
     zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)

@@ -8,7 +8,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from pod_compare_tpu_torch.ops.gaussian import inv4x4_psd
+from pod_compare_tpu_torch.ops.gaussian import det4x4_psd, inv4x4_psd
 
 
 def bayesian_fusion(
@@ -31,6 +31,42 @@ def bayesian_fusion(
     prec_sum = prec_sum + 1e-8 * torch.eye(4, dtype=boxes.dtype, device=boxes.device)
     fused_cov = inv4x4_psd(prec_sum)
     weighted_means = m @ torch.einsum("nij,nj->ni", precs, boxes)
+    fused_mean = torch.einsum("cij,cj->ci", fused_cov, weighted_means)
+    return fused_mean, fused_cov
+
+
+def covariance_intersection_fusion(
+    member_mask: torch.Tensor,
+    boxes: torch.Tensor,
+    covs: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Covariance-intersection fusion with the reference's closed-form
+    weights: member i of a cluster gets
+
+        w_i = (det(P) - det(P - P_i) + det(P_i)) / (m det(P) + sum_j (det(P_j) - det(P - P_j)))
+
+    where P_i are the member precisions, P their sum and m their count.
+    The determinants of P - P_i are generic (the matrix is not PSD). The
+    weights are differences of determinants and lose digits to
+    cancellation in float32, as the JAX package's do.
+
+    Args, returns: as `bayesian_fusion`.
+    """
+    dtype = boxes.dtype
+    eye = torch.eye(4, dtype=dtype, device=boxes.device)
+    precs = inv4x4_psd(covs)
+    m = member_mask.to(dtype)
+    counts = m.sum(dim=1)
+    prec_sum = torch.einsum("cn,nij->cij", m, precs)
+    prec_dets = det4x4_psd(precs)
+    total_det = det4x4_psd(prec_sum + 1e-12 * eye)
+    diff_det = torch.linalg.det(prec_sum[:, None] - precs[None])  # (C, N)
+    numer = total_det[:, None] - diff_det + prec_dets[None]
+    denom = counts * total_det + (m * (prec_dets[None] - diff_det)).sum(dim=1)
+    omegas = m * numer / denom.clamp_min(1e-20)[:, None]
+    weighted_prec_sum = torch.einsum("cn,nij->cij", omegas, precs) + 1e-8 * eye
+    fused_cov = inv4x4_psd(weighted_prec_sum)
+    weighted_means = omegas @ torch.einsum("nij,nj->ni", precs, boxes)
     fused_mean = torch.einsum("cij,cj->ci", fused_cov, weighted_means)
     return fused_mean, fused_cov
 

@@ -27,6 +27,19 @@ def covariance_output_to_cholesky(pred_bbox_cov: torch.Tensor) -> torch.Tensor:
     return chol
 
 
+def mvn_sample(
+    generator: torch.Generator,
+    mean: torch.Tensor,
+    scale_tril: torch.Tensor,
+    num_samples: int,
+) -> torch.Tensor:
+    """(S, ..., k) samples of N(mean, L L^T) as mean + L z, the normals z
+    drawn from `generator` (which must live on `mean`'s device)."""
+    z = torch.randn((num_samples,) + tuple(mean.shape), generator=generator,
+                    dtype=mean.dtype, device=mean.device)
+    return mean[None] + torch.einsum("...ij,s...j->s...i", scale_tril, z)
+
+
 def sample_mean_covariance(samples: torch.Tensor):
     """Mean and unbiased covariance (divisor S-1) over a leading sample
     axis: (S, ..., k) -> (..., k), (..., k, k)."""
@@ -44,6 +57,12 @@ def inv4x4_psd(cov: torch.Tensor) -> torch.Tensor:
     inv_l = torch.linalg.solve_triangular(chol, eye, upper=False)
     return torch.einsum("...ki,...kj->...ij", inv_l, inv_l)
 
+
+def det4x4_psd(cov: torch.Tensor) -> torch.Tensor:
+    """Batched determinant of PSD 4x4 matrices: the squared product of the
+    Cholesky factor's diagonal."""
+    chol = torch.linalg.cholesky_ex(cov).L
+    return torch.diagonal(chol, dim1=-2, dim2=-1).prod(dim=-1) ** 2
 
 
 def _cholesky_or_nan(cov: torch.Tensor) -> torch.Tensor:

@@ -74,3 +74,9 @@ def sibling_seed_dir(output_dir: str, seed: int) -> str:
 def load_params(output_dir: str) -> Dict[str, torch.Tensor]:
     """The model state dict of the latest checkpoint under `output_dir`."""
     return Checkpointer(output_dir).restore()["model"]
+
+
+def load_ensemble_params(output_dir: str, seeds: List[int]) -> List[Dict[str, torch.Tensor]]:
+    """The latest model state dict of each ensemble member: the sibling run
+    `random_seed_<seed>` of `output_dir`, in the order of `seeds`."""
+    return [load_params(sibling_seed_dir(output_dir, seed)) for seed in seeds]

@@ -207,7 +207,6 @@ def test_run_inference_needs_a_device_without_cuda(setup, tmp_path):
 @pytest.mark.parametrize("what,kw,opts", [
     ("batch_size='auto'", dict(batch_size="auto"), []),
     ("run_pdq", dict(run_pdq=True), []),
-    ("INFERENCE_MODE 'ensembles'", {}, ["PROBABILISTIC_INFERENCE.INFERENCE_MODE", "ensembles"]),
     ("more than one process or device", {}, ["PARALLEL.NUM_DEVICES", 4]),
 ])
 def test_unported_options_are_refused(tmp_path, what, kw, opts):
