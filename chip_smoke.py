@@ -95,6 +95,23 @@ Phases, each printing its seconds on its own line as it ends:
      at most 1% flips, matched values within 1e-3. Then apply_net's main
      on ensembles_post_nms over 8 of phase 9's PNGs, the five members
      from their random_seed_<seed> sibling checkpoints.
+ 12. rest: apply_net's main on phase 9's 32 PNGs and checkpoint with
+     --batch-size auto (the peak-memory guard's probes at batch 1 and 2, its
+     linear fit, the budget, the chosen batch, whose measured peak must fit)
+     and --run-pdq (PDQ finite in [0, 1], its seconds), then
+     visualize_predictions on 4 images of that json (a PNG each, differing
+     from its image); the flagship with HEAD_QUANT int8 at 736x1280, batch
+     2: 400 float32 dropout launches, ms/batch, head ms, peak, its
+     detections against the bf16 head's on the same canvases and masks,
+     quantized_conv3x3 at the P3 tower shape on the card against the CPU
+     (int32 sums equal, outputs within 1e-6 of scale) and timed against the
+     bf16 conv, and the int8 predictor against the CPU at 128x128 (at most
+     1% flips); the energy config's Trainer, 5 steps at batch 4 on 736x1280
+     with one focal launch a step, ms/step and peak, and its energy term of
+     1000 samples (8 seeds) within 4 standard errors of a 20,000-sample
+     estimate; one flagship train step without and with PARALLEL.REMAT from
+     the same state and seeds: losses equal, gradients within 1e-5 of
+     scale, REMAT's peak lower.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 
 It needs a CUDA device and the repository around it; it exits non-zero
@@ -125,6 +142,7 @@ import torch
 from pod_compare_tpu_torch import native
 from pod_compare_tpu_torch.cli import train_net
 from pod_compare_tpu_torch.cli.apply_net import main as apply_net_main
+from pod_compare_tpu_torch.cli.visualize_predictions import visualize_dataset
 from pod_compare_tpu_torch.config import merge_configs, setup_arg_parser
 from pod_compare_tpu_torch.data import TestLoader, TrainLoader, get_dataset, load_image_bgr
 from pod_compare_tpu_torch.data.converters.common import (
@@ -151,6 +169,7 @@ from pod_compare_tpu_torch.inference import (
     sampled_box_moments,
 )
 from pod_compare_tpu_torch.inference import modes as pmodes
+from pod_compare_tpu_torch.models import retinanet as pretinanet
 from pod_compare_tpu_torch.models import (
     KernelDropout,
     TowerDropout,
@@ -165,10 +184,14 @@ from pod_compare_tpu_torch.ops.gaussian import covariance_output_to_cholesky
 from pod_compare_tpu_torch.ops.kernels import _build
 from pod_compare_tpu_torch.ops.kernels import dropout as kdropout
 from pod_compare_tpu_torch.ops.kernels import focal as kfocal
-from pod_compare_tpu_torch.train import RandomBatches, Trainer
+from pod_compare_tpu_torch.ops.matcher import label_anchors_batch
+from pod_compare_tpu_torch.ops import quant as pquant
+from pod_compare_tpu_torch.train import RandomBatches, Trainer, create_train_state, make_train_step
 from pod_compare_tpu_torch.train import trainer as trainer_module
 from pod_compare_tpu_torch.train.checkpoint import Checkpointer, load_params
+from pod_compare_tpu_torch.train.loss import LossConfig, box_seed, encode_deltas
 from pod_compare_tpu_torch.train.trainer import batch_to_device
+from pod_compare_tpu_torch.utils.memory_guard import BATCH_CANDIDATES, BUDGET_FRACTION
 
 TRAIN_CFG = "BDD-Detection/retinanet/retinanet_R_50_FPN_1x_reg_cls_var_dropout.yaml"
 INFER_CFG = "Inference/bayes_od_mc_dropout.yaml"
@@ -352,10 +375,11 @@ def canvases(seed: int, size, batch: int) -> np.ndarray:
 def check_kernel(seed: int, card: str):
     """Phase 2. Returns the numbers of the bf16 batch-shared case, the one
     the main paths launch, at the slice's P3 and (under "eval") at
-    apply_net's."""
+    apply_net's, and (under "f32") of the float32 batch-shared case at the
+    slice's P3, the one the int8 head's MC bank launches (phase 12)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rate = 0.2
-    main = None
+    main = f32 = None
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn(P3_SHAPE, generator=gen, device="cuda").to(dtype)
         x = x.contiguous(memory_format=torch.channels_last)
@@ -396,9 +420,13 @@ def check_kernel(seed: int, card: str):
                 f"{share:.5f} (band {band:.5f}), kernel {ms:.4f} ms L2-cold / {warm_ms:.4f} ms "
                 f"L2-warm, plain {plain_ms:.4f} ms, "
                 f"F.dropout {torch_ms:.4f} ms, bound {bound_ms:.4f} ms ({card})")
-            if dtype == torch.bfloat16 and shared:
-                main = dict(max_abs_err=err, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, torch_dropout_ms=torch_ms)
+            numbers = dict(max_abs_err=err, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, torch_dropout_ms=torch_ms)
+            if shared and dtype == torch.bfloat16:
+                main = numbers
+            elif shared:
+                f32 = numbers
+    main["f32"] = f32
     # The case inference launches (bf16, batch-shared, ReLU fused) at every
     # FPN level of both canvases, each level at its offset in one draw over
     # P3-P7 as KernelDropout gives it: the slice's 736x1280 and apply_net's
@@ -1827,7 +1855,6 @@ def check_modes_against_cpu(seed: int, card: str) -> None:
     opts = ("PARALLEL.COMPUTE_DTYPE", "float32", "PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS", 3)
     size = (128, 128)
     images = torch.from_numpy(canvases(seed + 1, size, BATCH))
-    sizes = np.array([[128, 128]] * BATCH, np.float32)
     flagship = mode_config(INFER_CFG, opts)
     sd = convert.from_jax_params(random_jax_params(seed + 1, NUM_CLASSES))
     tempered = temper_head(sd, flagship, images[:1], "cpu")
@@ -1837,29 +1864,42 @@ def check_modes_against_cpu(seed: int, card: str) -> None:
         if "mc_iid" in name:
             continue
         cfg = mode_config(infer, tuple(opts) + tuple(extra))
-        dets = {}
-        for device in ("cuda", "cpu"):
-            predictor = mode_predictor(cfg, size, tempered, members, device)
-            out = predictor(images, sizes, sizes, generator=torch.Generator().manual_seed(seed))
-            dets[device] = type(out)(*[None if f is None else f.cpu() for f in out])
-        g, c = dets["cuda"], dets["cpu"]
-        pairs, flips = match_detections(g, c)
-        n = int(c.valid.sum())
-        if n == 0 or flips > MAX_MODE_FLIPS * n:
-            raise AssertionError(f"{name}: {flips} of {n} detections differ between GPU and CPU")
-        errs = {}
-        for field in ("boxes", "covs", "scores"):
-            a = torch.stack([getattr(g, field)[b, j] for b, _, j in pairs]).double()
-            r = torch.stack([getattr(c, field)[b, i] for b, i, _ in pairs]).double()
-            dims = tuple(range(1, r.dim()))
-            scale = r.abs().amax(dim=dims, keepdim=True) if dims else r.abs()
-            errs[field] = float(((a - r).abs() / scale.clamp_min(1e-6)).max())
-            if errs[field] > 1e-3:
-                raise AssertionError(f"{name}: {field} differ between GPU and CPU: {errs[field]}")
-        summary.append(f"{name} {len(pairs)}/{n} matched, {flips} flips, "
-                       + ", ".join(f"{k} {e:.1e}" for k, e in errs.items()))
+        summary.append(gpu_against_cpu(name, cfg, size, images, tempered, members, seed))
     log("modes reference (GPU vs CPU, 128x128 float32, max relative error): "
         + "; ".join(summary) + f" ({card})")
+
+
+def gpu_against_cpu(name, cfg, size, images, tempered, members, seed) -> str:
+    """One configuration's predictor on the GPU and on the CPU, same weights
+    and generator, held by `held_against_cpu`. Returns the summary line."""
+    sizes = np.array([size] * images.shape[0], np.float32)
+    dets = {}
+    for device in (DEVICE, "cpu"):
+        predictor = mode_predictor(cfg, size, tempered, members, device)
+        out = predictor(images, sizes, sizes, generator=torch.Generator().manual_seed(seed))
+        dets[device] = type(out)(*[None if f is None else f.cpu() for f in out])
+    return held_against_cpu(name, dets[DEVICE], dets["cpu"])
+
+
+def held_against_cpu(name, g, c) -> str:
+    """GPU detections `g` against CPU detections `c`: matched by class and
+    IoU, at most 1% flips, matched values within 1e-3 of each box's or
+    matrix's largest entry. Returns the summary line."""
+    pairs, flips = match_detections(g, c)
+    n = int(c.valid.sum())
+    if n == 0 or flips > MAX_MODE_FLIPS * n:
+        raise AssertionError(f"{name}: {flips} of {n} detections differ between GPU and CPU")
+    errs = {}
+    for field in ("boxes", "covs", "scores"):
+        a = torch.stack([getattr(g, field)[b, j] for b, _, j in pairs]).double()
+        r = torch.stack([getattr(c, field)[b, i] for b, i, _ in pairs]).double()
+        dims = tuple(range(1, r.dim()))
+        scale = r.abs().amax(dim=dims, keepdim=True) if dims else r.abs()
+        errs[field] = float(((a - r).abs() / scale.clamp_min(1e-6)).max())
+        if errs[field] > 1e-3:
+            raise AssertionError(f"{name}: {field} differ between GPU and CPU: {errs[field]}")
+    return (f"{name} {len(pairs)}/{n} matched, {flips} flips, "
+            + ", ".join(f"{k} {e:.1e}" for k, e in errs.items()))
 
 
 def run_modes_apply_net(seed: int, card: str, work: str, members) -> dict:
@@ -1924,6 +1964,427 @@ def run_modes_apply_net(seed: int, card: str, work: str, members) -> dict:
     shutil.rmtree(data, ignore_errors=True)
     return dict(seconds=main_s, images_per_second=summary["images_per_second"],
                 peak_gib=peak / 2 ** 30)
+
+# ------------------------------------------------------------ rest phase
+ENERGY_CFG = "BDD-Detection/retinanet/retinanet_R_50_FPN_1x_reg_covar_energy.yaml"
+INT8 = ["PROBABILISTIC_INFERENCE.HEAD_QUANT", "int8"]
+ENERGY_STEPS = 5
+ENERGY_SEEDS = 8  # 1000-sample energy terms whose spread gives the standard error
+ENERGY_REFERENCE_SAMPLES = 20000
+REST_VIZ_IMAGES = 4
+# Share of the int8 head's first-conv codes the GPU's and the CPU's FPN
+# features may quantize differently (tests/test_torch_quant.py holds the
+# port against JAX to the same bound).
+MAX_CODE_FLIPS = 1e-3
+# Where phase 12 runs; a rehearsal on the CPU sets "cpu" (with small shapes
+# and the torch.cuda calls stubbed).
+DEVICE = "cuda"
+
+
+def flagship_launches(cfg) -> int:
+    return (int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * 2
+            * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES))
+
+
+def run_auto_apply_net(seed: int, card: str, work: str):
+    """Phase 12, part 1: apply_net's main with --batch-size auto and
+    --run-pdq on phase 9's 32 PNGs and checkpoint. Returns its dropout
+    launches and its json's path."""
+    data = os.path.join(work, "data")
+    os.environ["POD_COMPARE_DATA_DIR"] = data
+    args = setup_arg_parser().parse_args(
+        ["--config-file", TRAIN_CFG, "--inference-config", INFER_CFG, "--dataset-dir",
+         os.path.join(work, "bdd"), "--test-dataset", "bdd_val", "--random-seed", str(seed)])
+    args.run_pdq = True
+    per_call = flagship_launches(merge_configs(TRAIN_CFG, INFER_CFG))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kdropout.LAUNCHES = 0
+    t = time.perf_counter()
+    summary = apply_net_main(args, batch_size="auto")
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    launches = kdropout.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    auto = summary["auto_batch"]
+    chosen, budget = auto["batch"], auto["budget"]
+    # The guard's predictor calls (batches 1 and 2, then each candidate run
+    # to check its prediction) and the batches of the run itself.
+    guard_calls = 2 + sum(1 for b in auto["measured"] if b not in (1, 2))
+    batches = -(-EVAL_IMAGES // chosen)
+    if launches != per_call * (guard_calls + batches):
+        raise AssertionError(f"{launches} dropout launches, expected {per_call} x "
+                             f"({guard_calls} guard calls + {batches} batches)")
+    if not auto["measured"][chosen] <= budget:
+        raise AssertionError(f"chosen batch {chosen} measured {auto['measured'][chosen]} bytes "
+                             f"over the {budget} budget")
+    for b in BATCH_CANDIDATES:
+        if b == chosen:
+            break
+        if not max(auto["predicted"][b], auto["measured"].get(b, 0)) > budget:
+            raise AssertionError(f"batch {b} fits the budget but {chosen} was chosen")
+    pdq = summary["pdq"]
+    if not (0.0 <= pdq["pdq"] <= 1.0 and all(math.isfinite(v) for v in pdq.values())):
+        raise AssertionError(f"PDQ {pdq}")
+    json_path = os.path.join(summary["inference_output_dir"], "coco_instances_results.json")
+    with open(json_path) as f:
+        records = json.load(f)
+    with open(os.path.join(work, "bdd", "labels", "val_coco_format.json")) as f:
+        ids = {im["id"] for im in json.load(f)["images"]}
+    if {r["image_id"] for r in records} != ids or summary["num_images"] != EVAL_IMAGES:
+        raise AssertionError("an image has no entry in the auto run's json")
+    check_metrics("auto json", summary, finite_only=False)
+    gib = lambda v: f"{v / 2 ** 30:.3f} GiB"
+    log(f"rest auto batch: probes {', '.join(f'batch {b} {gib(v)}' for b, v in auto['probes'].items())}"
+        f", {gib(auto['slope'])} per image; budget {gib(budget)} "
+        f"({BUDGET_FRACTION} of the card's {gib(torch.cuda.mem_get_info()[1])}); predicted "
+        + ", ".join(f"{b}: {gib(v)}" for b, v in auto["predicted"].items())
+        + "; measured " + ", ".join(f"{b}: {gib(v)}" for b, v in auto["measured"].items())
+        + f"; chosen batch {chosen}, its measured peak {gib(auto['measured'][chosen])} ({card})")
+    log(f"rest auto apply_net: main {main_s:.2f} s, {summary['num_images']} images at batch "
+        f"{chosen}, {summary['num_detections']} detections, loader-fed "
+        f"{summary['images_per_second']:.2f} img/s, evaluation {summary['evaluation_seconds']:.2f} "
+        f"s, {launches} dropout launches ({per_call} x ({guard_calls} + {batches})), peak memory "
+        f"{gib(peak)} ({card})")
+    log(f"rest PDQ: {pdq['pdq']:.6f} (avg pPDQ {pdq['avg_ppdq']:.4f}, spatial "
+        f"{pdq['avg_spatial_quality']:.4f}, label {pdq['avg_label_quality']:.4f}, TP/FP/FN "
+        f"{pdq['tp']}/{pdq['fp']}/{pdq['fn']}) in {summary['pdq_seconds']:.2f} s ({card})")
+    return launches, json_path
+
+
+def check_quantized_conv(seed: int, card: str, weight: torch.Tensor, bias: torch.Tensor) -> None:
+    """Phase 12: ``quantized_conv3x3`` at the P3 tower shape on the card
+    against the CPU on the same inputs (signed, as conv 0 sees the FPN
+    features, and unsigned, as the later convs see ReLU outputs): int32 sums
+    equal, outputs within 1e-6 of scale; then its time and the int8
+    product's against the bf16 conv's at that shape."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(P3_SHAPE, generator=gen) * 2.0).contiguous(memory_format=torch.channels_last)
+    card_tensor = lambda t: t.to(DEVICE)
+    w, b = weight.float().cpu(), bias.float().cpu()
+    for signed in (True, False):
+        xin = x if signed else torch.relu(x)
+        x8, _ = pquant.quantize_act_per_image(xin, signed)
+        w8, _ = pquant.quantize_weight_per_channel(w)
+        sums_cpu = pquant.int8_conv3x3(x8, w8)
+        sums_gpu = pquant.int8_conv3x3(card_tensor(x8), card_tensor(w8)).cpu()
+        if not torch.equal(sums_cpu, sums_gpu):
+            raise AssertionError(f"int32 sums differ between GPU and CPU (signed={signed})")
+        ref = pquant.quantized_conv3x3(xin, w, b, act_signed=signed)
+        out = pquant.quantized_conv3x3(card_tensor(xin), card_tensor(w), card_tensor(b),
+                                       act_signed=signed).cpu()
+        err = float((out - ref).abs().max() / ref.abs().max())
+        if err > 1e-6:
+            raise AssertionError(f"quantized conv GPU vs CPU {err} of scale (signed={signed})")
+    xg, wg, bg = card_tensor(x), card_tensor(w), card_tensor(b)
+    x8, _ = pquant.quantize_act_per_image(xg, True)
+    w8, _ = pquant.quantize_weight_per_channel(wg)
+    c = P3_SHAPE[1]
+    rows = P3_SHAPE[0] * P3_SHAPE[2] * P3_SHAPE[3]
+    cols = torch.randint(-127, 128, (rows, 9 * c), dtype=torch.int8, device=DEVICE)
+    w_mat = w8.permute(0, 2, 3, 1).reshape(c, 9 * c)
+    xb, wb, bb = xg.bfloat16(), wg.bfloat16(), bg.bfloat16()
+    times = dict(
+        int8_conv_ms=event_ms(lambda: pquant.quantized_conv3x3(xg, wg, bg), 20),
+        int8_product_ms=event_ms(lambda: torch._int_mm(cols, w_mat.t()), 20),
+        bf16_conv_ms=event_ms(lambda: torch.nn.functional.conv2d(xb, wb, bb, padding=1), 20),
+    )
+    ops = 2.0 * rows * 9 * c * c
+    log(f"rest quantized conv at {P3_SHAPE}: int32 sums GPU == CPU, outputs within 1e-6 of "
+        f"scale (signed and unsigned); whole int8 conv (quantize, im2col, product, dequantize) "
+        f"{times['int8_conv_ms']:.4f} ms, the int8 product alone ({rows}x{9 * c}x{c}) "
+        f"{times['int8_product_ms']:.4f} ms (its operations over 1979 TOP/s: "
+        f"{ops / 1979e12 * 1e3:.4f} ms), the bf16 conv {times['bf16_conv_ms']:.4f} ms "
+        f"({ops / 989e12 * 1e3:.4f} ms over 989 TFLOP/s) ({card})")
+
+
+def run_int8(seed: int, card: str) -> int:
+    """Phase 12, part 2: the flagship with HEAD_QUANT int8 at full width."""
+    cfg = merge_configs(TRAIN_CFG, INFER_CFG)
+    cfg8 = merge_configs(TRAIN_CFG, INFER_CFG, INT8)
+    images = torch.from_numpy(canvases(seed, CANVAS, BATCH))
+    sd = convert.from_jax_params(random_jax_params(seed, NUM_CLASSES))
+    tempered = temper_head(sd, cfg, images[:1], DEVICE)
+    images = images.to(DEVICE)
+    per_call = flagship_launches(cfg8)
+    dtypes = []
+    real_dropout = pretinanet.dropout
+
+    def watched(x, *args, **kwargs):
+        dtypes.append(x.dtype)
+        return real_dropout(x, *args, **kwargs)
+
+    predictor = build_predictor(cfg8, CANVAS, tempered, device=DEVICE)
+    call = lambda p, s: p(images, IMAGE_SIZES, IMAGE_SIZES,
+                          generator=torch.Generator().manual_seed(s))
+    pretinanet.dropout = watched
+    try:
+        torch.cuda.synchronize()
+        kdropout.LAUNCHES = 0
+        dets8 = call(predictor, seed)
+        torch.cuda.synchronize()
+        launches = kdropout.LAUNCHES
+    finally:
+        pretinanet.dropout = real_dropout
+    if launches != per_call or dtypes != [torch.float32] * per_call:
+        raise AssertionError(f"int8 head: {launches} dropout launches on "
+                             f"{sorted(set(map(str, dtypes)))}, expected {per_call} float32")
+    n_valid, biggest = check_detections(dets8, IMAGE_SIZES, min_cluster=2)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call(predictor, seed + 1 + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    head_ms = {}
+    bf16 = build_predictor(cfg, CANVAS, tempered, device=DEVICE)
+    for name, p in (("int8", predictor), ("bf16", bf16)):
+        gen = torch.Generator().manual_seed(seed)
+        p.head_outputs(images, gen)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            p.head_outputs(images, torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        head_ms[name] = (time.perf_counter() - t) * 1e3 / 3
+    # The same canvases and generator, so the same dropout masks: int8
+    # detections against the bf16 head's, matched by class and IoU > 0.99.
+    dets_bf16 = call(bf16, seed)
+    pairs, flips = match_detections(dets8, dets_bf16)
+    share = len(pairs) / max(int(dets_bf16.valid.sum()), 1)
+    check_quantized_conv(seed, card, tempered["head.cls_subnet.0.weight"],
+                         tempered["head.cls_subnet.0.bias"])
+    del predictor, bf16
+    torch.cuda.empty_cache()
+
+    reference = int8_against_cpu(seed)
+    ms = float(np.median(times[1:]))
+    log(f"rest int8: {launches} dropout launches, all float32 (expected {per_call}), {n_valid} "
+        f"valid detections, largest cluster {biggest}; {ms:.2f} ms/batch median of 5 after one "
+        f"{[round(t, 2) for t in times]}, head {head_ms['int8']:.2f} ms (bf16 head "
+        f"{head_ms['bf16']:.2f} ms), peak memory {peak / 2 ** 30:.3f} GiB ({card})")
+    log(f"rest int8 against the bf16 head on the same canvases and masks: {len(pairs)} of "
+        f"{int(dets_bf16.valid.sum())} bf16 detections matched ({100 * share:.1f}%), {flips} "
+        f"unmatched on either side ({card})")
+    log(f"rest int8 reference (GPU vs CPU, 128x128 float32, max relative error): {reference} "
+        f"({card})")
+    return launches
+
+
+def int8_against_cpu(seed: int) -> str:
+    """The int8 predictor on the card against the CPU at 128x128 in float32,
+    M = 3, same weights and generator. The two backbones round differently
+    (cuDNN's and oneDNN's convolutions), and an FPN value within rounding of
+    a quantization step takes another int8 code on each side (a flip), which
+    moves the tower's outputs and through BayesOD's clusters whole
+    detections: those flips are counted and bounded (at most 1e-3 of the
+    first tower conv's codes), and the CPU's head then runs on the card's
+    FPN features, as the training check pins the card's ReLU gates. From
+    there the towers are equal bit for bit (int32 sums, dequantization, the
+    dropout kernel), and the detections are held as phase 11 holds them."""
+    opts = ("PARALLEL.COMPUTE_DTYPE", "float32", "PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS", 3)
+    size = (128, 128)
+    images = torch.from_numpy(canvases(seed + 1, size, BATCH))
+    sizes = np.array([size] * BATCH, np.float32)
+    flagship = mode_config(INFER_CFG, opts)
+    sd = temper_head(convert.from_jax_params(random_jax_params(seed + 1, NUM_CLASSES)),
+                     flagship, images[:1], "cpu")
+    cfg = mode_config(INFER_CFG, opts + tuple(INT8))
+    card, host = (build_predictor(cfg, size, sd, device=d) for d in (DEVICE, "cpu"))
+    with torch.no_grad():
+        card_feats = [f.cpu() for f in card.model.backbone_features(images.to(DEVICE))]
+        host_feats = host.model.backbone_features(images)
+    flips = total = 0
+    for a, b in zip(card_feats, host_feats):
+        codes_a = pquant.quantize_act_per_image(a, True)[0]
+        codes_b = pquant.quantize_act_per_image(b, True)[0]
+        flips += int((codes_a != codes_b).sum())
+        total += codes_a.numel()
+    if flips > MAX_CODE_FLIPS * total:
+        raise AssertionError(f"int8: {flips} of {total} first-conv codes differ between GPU and CPU")
+    host.model.backbone_features = lambda _: card_feats
+    dets = {}
+    for name, p in (("card", card), ("host", host)):
+        out = p(images, sizes, sizes, generator=torch.Generator().manual_seed(seed))
+        dets[name] = type(out)(*[None if f is None else f.cpu() for f in out])
+    return (f"{flips} of {total} first-conv codes flipped between the two backbones; on the "
+            f"card's FPN features " + held_against_cpu("int8", dets["card"], dets["host"]))
+
+
+def energy_terms(model, cfg, batch, anchors, seeds, num_samples) -> list:
+    """The energy score (before normalisation) of one batch's outputs, one
+    value per seed of its device generator."""
+    lc = LossConfig.from_config(cfg)
+    with torch.no_grad():
+        outputs = model(batch["images"])
+        labels = label_anchors_batch(anchors, batch["gt_boxes"], batch["gt_classes"],
+                                     batch["gt_valid"], lc.num_classes, lc.iou_thresholds)
+        pos = (labels.gt_classes >= 0) & (labels.gt_classes != lc.num_classes)
+        gt = encode_deltas(anchors[None], labels.matched_boxes, lc.box_reg_weights)
+        gt = torch.where(pos[..., None], gt, torch.zeros((), device=gt.device))
+        return [float(plosses.energy_score_box_loss(
+            outputs["box_delta"], gt, outputs["box_reg_var"], pos, num_samples,
+            lc.smooth_l1_beta,
+            generator=torch.Generator(device=DEVICE).manual_seed(box_seed(s))))
+            for s in seeds]
+
+
+def run_energy_train(seed: int, card: str, work: str) -> int:
+    """Phase 12, part 3: the energy config's Trainer at batch 4 on 736x1280.
+    Returns its focal launches."""
+    cfg = merge_configs(ENERGY_CFG, "", [
+        "MODEL.PROBABILISTIC_MODELING.CLS_VAR_LOSS.IMPL", "pallas",
+        "OUTPUT_DIR", os.path.join(work, "energy"), "SEED", seed,
+        "MODEL.WEIGHTS", backbone_pth(seed, os.path.join(work, "r50_energy.pth"))])
+    if cfg.MODEL.PROBABILISTIC_MODELING.BBOX_COV_LOSS.NAME != "energy_loss":
+        raise AssertionError("the energy config does not train the energy score")
+    loader = RandomBatches(CANVAS, TRAIN_BATCH, NUM_CLASSES, cfg.INPUT.MAX_GT_BOXES, seed=seed)
+    trainer = Trainer(cfg, loader, device=DEVICE)
+    trainer.resume_or_load(resume=False)
+    kdropout.LAUNCHES = kfocal.LAUNCHES = 0
+    trainer.train(max_iter=ENERGY_STEPS, log_period=ENERGY_STEPS)
+    torch.cuda.synchronize()
+    launches = {"dropout": kdropout.LAUNCHES, "focal": kfocal.LAUNCHES}
+    if launches != {"dropout": 0, "focal": ENERGY_STEPS}:
+        raise AssertionError(f"energy config: launches {launches} in {ENERGY_STEPS} steps")
+    latest = trainer.storage.latest()
+    if not all(math.isfinite(latest[k]) for k in ("loss_cls", "loss_box_reg", "total_loss")):
+        raise AssertionError(f"energy config: non-finite losses {latest}")
+    data = loader.iter_from(trainer.state.step)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(ENERGY_STEPS + 1):
+        batch = batch_to_device(next(data), trainer.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t) * 1e3)
+        if not math.isfinite(float(metrics["total_loss"])):
+            raise AssertionError("energy config: non-finite loss in the timed steps")
+    peak = torch.cuda.max_memory_allocated()
+
+    # The energy term by law: 1000-sample values over 8 seeds against one
+    # 20,000-sample estimate on the same batch.
+    model = trainer.state.model
+    values = energy_terms(model, cfg, batch, trainer.train_step.anchors,
+                          range(ENERGY_SEEDS), cfg.MODEL.PROBABILISTIC_MODELING.BBOX_COV_LOSS.NUM_SAMPLES)
+    reference = energy_terms(model, cfg, batch, trainer.train_step.anchors, [ENERGY_SEEDS],
+                             ENERGY_REFERENCE_SAMPLES)[0]
+    se = float(np.std(values, ddof=1))
+    worst = max(abs(v - reference) for v in values)
+    if not (se > 0 and worst <= 4 * se):
+        raise AssertionError(f"energy term: 1000-sample values {values} vs 20,000-sample "
+                             f"{reference}, standard error {se}")
+    ms = float(np.median(times))
+    log(f"rest energy config: {ENERGY_STEPS} steps through Trainer.train, {launches['focal']} focal "
+        f"and {launches['dropout']} dropout launches, losses "
+        + ", ".join(f"{k} {latest[k]:.4g}" for k in ("loss_cls", "loss_box_reg", "total_loss"))
+        + f"; {ms:.2f} ms/step median of {[round(t, 2) for t in times]} at batch {TRAIN_BATCH} on "
+        f"{CANVAS[0]}x{CANVAS[1]}, peak memory {peak / 2 ** 30:.3f} GiB ({card})")
+    log(f"rest energy term: 1000 samples over {ENERGY_SEEDS} seeds {np.mean(values):.6f} (standard "
+        f"error of one {se:.6f}, farthest {worst / se:.2f} of it) against {ENERGY_REFERENCE_SAMPLES} "
+        f"samples {reference:.6f} ({card})")
+    trainer.close()
+    return launches["focal"]
+
+
+def run_remat(seed: int, card: str, work: str):
+    """Phase 12, part 4: one flagship train step from the same state, seeds
+    and batch without and with PARALLEL.REMAT: losses equal, every gradient
+    within 1e-5 of its tensor's scale, REMAT's peak lower. Returns the
+    kernels' launches of each step."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for remat in (False, True):
+            cfg = train_cfg(seed, os.path.join(work, f"remat_{remat}"),
+                            ["PARALLEL.REMAT", remat])
+            state = create_train_state(cfg, DEVICE, seed=seed)
+            state.step = 1000
+            anchors = torch.as_tensor(build_anchor_generator(cfg).concatenated(CANVAS),
+                                      device=DEVICE)
+            step = make_train_step(cfg, anchors)
+            batch = batch_to_device(
+                RandomBatches(CANVAS, TRAIN_BATCH, NUM_CLASSES, 100, seed=seed).batch(0), DEVICE)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kdropout.LAUNCHES = kfocal.LAUNCHES = 0
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            runs[remat] = dict(
+                peak=torch.cuda.max_memory_allocated(),
+                launches={"dropout": kdropout.LAUNCHES, "focal": kfocal.LAUNCHES},
+                metrics={k: v.clone() for k, v in metrics.items()},
+                grads={n: p.grad.clone() for n, p in state.model.named_parameters()
+                       if p.grad is not None})
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain, remat = runs[False], runs[True]
+    per_pass = 2 * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES)
+    if plain["launches"] != {"dropout": 2 * per_pass, "focal": 1} or \
+            remat["launches"] != {"dropout": 3 * per_pass, "focal": 1}:
+        raise AssertionError(f"launches: without REMAT {plain['launches']}, with "
+                             f"{remat['launches']}")
+    for k in ("loss_cls", "loss_box_reg", "total_loss"):
+        if not torch.equal(plain["metrics"][k], remat["metrics"][k]):
+            raise AssertionError(f"REMAT changed {k}: {plain['metrics'][k]} vs "
+                                 f"{remat['metrics'][k]}")
+    worst = 0.0
+    if plain["grads"].keys() != remat["grads"].keys():
+        raise AssertionError("REMAT changed the set of gradients")
+    for n, g in plain["grads"].items():
+        err = float((g - remat["grads"][n]).abs().max() / g.abs().max().clamp_min(1e-30))
+        worst = max(worst, err)
+        if err > 1e-5:
+            raise AssertionError(f"REMAT gradient {n} off by {err} of its scale")
+    if not remat["peak"] < plain["peak"]:
+        raise AssertionError(f"REMAT peak {remat['peak']} not below {plain['peak']}")
+    log(f"rest REMAT: one flagship step at batch {TRAIN_BATCH} on {CANVAS[0]}x{CANVAS[1]}, losses "
+        f"equal, {len(plain['grads'])} gradients within {worst:.2e} of their scale; dropout "
+        f"launches {plain['launches']['dropout']} without, {remat['launches']['dropout']} with "
+        f"(the recomputed forward); peak memory {plain['peak'] / 2 ** 30:.3f} GiB without, "
+        f"{remat['peak'] / 2 ** 30:.3f} GiB with ({card})")
+    return plain["launches"], remat["launches"]
+
+
+def run_visualize(card: str, work: str, json_path: str) -> None:
+    """Phase 12, part 5: visualize_predictions on 4 images of the auto run's
+    json: a PNG each, differing from its source image."""
+    out = os.path.join(work, "viz")
+    t = time.perf_counter()
+    visualize_dataset("bdd_val", out, json_path, max_images=REST_VIZ_IMAGES)
+    seconds = time.perf_counter() - t
+    records = {r["image_id"]: r for r in get_dataset("bdd_val").load()}
+    names = sorted(os.listdir(out))
+    if len(names) != REST_VIZ_IMAGES:
+        raise AssertionError(f"visualize_predictions wrote {names}")
+    for name in names:
+        drawn = cv2.imread(os.path.join(out, name))
+        source = load_image_bgr(records[int(os.path.splitext(name)[0])]["file_name"])
+        if drawn is None or drawn.shape != source.shape or not (drawn != source).any():
+            raise AssertionError(f"{name} is not a drawing over its image")
+    log(f"rest visualize_predictions: {len(names)} PNGs in {seconds:.2f} s, each differing from "
+        f"its image ({card})")
+
+
+def run_rest(seed: int, card: str, work: str) -> dict:
+    """Phase 12. Returns the kernels' launches on each of its paths."""
+    auto_launches, json_path = run_auto_apply_net(seed, card, work)
+    run_visualize(card, work, json_path)
+    int8_launches = run_int8(seed, card)
+    energy_launches = run_energy_train(seed, card, work)
+    plain, remat = run_remat(seed, card, work)
+    return {"dropout": {"auto_apply_net": auto_launches, "int8_batch": int8_launches,
+                        "train_step": plain["dropout"], "remat_train_step": remat["dropout"]},
+            "focal": {"energy": energy_launches, "remat_train_step": remat["focal"]}}
 
 
 def main() -> int:
@@ -2015,6 +2476,10 @@ def main() -> int:
         check_modes_against_cpu(args.seed, card)
         run_modes_apply_net(args.seed, card, work, members)
         phase("modes", t0)
+
+        t0 = time.perf_counter()
+        rest = run_rest(args.seed, card, work)
+        phase("rest", t0)
     log(f"[total] {time.perf_counter() - t_all:.2f} s ({card})")
 
     kernels = [{
@@ -2048,6 +2513,14 @@ def main() -> int:
         "eval_torch_dropout_ms": k1["eval"]["torch_dropout_ms"],
         "train_net_launches": train_net_launches["dropout"],
         "modes_launches": {name: rec["launches"] for name, rec in modes.items()},
+        "rest_launches": rest["dropout"],
+        "int8_shape": list(P3_SHAPE),
+        "int8_dtype": "float32",
+        "int8_max_abs_err": k1["f32"]["max_abs_err"],
+        "int8_ms": k1["f32"]["ms"],
+        "int8_plain_ms": k1["f32"]["plain_ms"],
+        "int8_bound_ms": k1["f32"]["bound_ms"],
+        "int8_torch_dropout_ms": k1["f32"]["torch_dropout_ms"],
     }, {
         "name": "stochastic_focal_elem",
         "route": "cuda",
@@ -2072,6 +2545,8 @@ def main() -> int:
         "dtype": "float32",
         "train_launches_per_step": step_launches["focal"],
         "train_net_launches": train_net_launches["focal"],
+        "energy_launches": rest["focal"]["energy"],
+        "remat_train_step_launches": rest["focal"]["remat_train_step"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

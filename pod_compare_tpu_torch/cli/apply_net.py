@@ -16,11 +16,14 @@ latest checkpoint under ``OUTPUT_DIR`` (``train/checkpoint.py``); for the
 unless the caller names a device, and raises without CUDA otherwise.
 
 ``profile=True`` traces the inference loop with ``torch.profiler`` into
-the inference directory's ``profile/``.
+the inference directory's ``profile/``. ``batch_size='auto'`` runs at the
+largest batch of (32, 24, 16, 8, 4, 2, 1) whose measured peak memory fits
+the card (``utils/memory_guard.py``); ``run_pdq`` adds PDQ
+(``evaluation/pdq.py``) to the summary.
 
 Every inference mode of ``configs/Inference/`` runs. Not ported yet, and
-refused with the ROADMAP item that ports it: the automatic batch size
-(C3), PDQ (C2) and more than one process or device (B4).
+refused with the ROADMAP item that ports it: more than one process or
+device (B4).
 """
 
 import json
@@ -38,9 +41,16 @@ from pod_compare_tpu_torch.config import (
 )
 from pod_compare_tpu_torch.data.datasets import get_dataset
 from pod_compare_tpu_torch.data.loader import DevicePrefetcher, TestLoader
-from pod_compare_tpu_torch.evaluation.average_precision import evaluate_average_precision
+from pod_compare_tpu_torch.evaluation.average_precision import (
+    evaluate_average_precision,
+    read_optimal_score_threshold,
+)
 from pod_compare_tpu_torch.evaluation.calibration_errors import evaluate_calibration_errors
-from pod_compare_tpu_torch.evaluation.category_mapping import model_to_dataset_id_map
+from pod_compare_tpu_torch.evaluation.category_mapping import (
+    dataset_id_to_model_contiguous_map,
+    model_to_dataset_id_map,
+)
+from pod_compare_tpu_torch.evaluation.pdq import evaluate_pdq
 from pod_compare_tpu_torch.evaluation.probabilistic_metrics import (
     evaluate_probabilistic_metrics,
 )
@@ -50,6 +60,7 @@ from pod_compare_tpu_torch.inference.predictor import build_predictor
 from pod_compare_tpu_torch.train.checkpoint import load_ensemble_params, load_params
 from pod_compare_tpu_torch.utils.device import resolve_device
 from pod_compare_tpu_torch.utils.logging import setup_logger
+from pod_compare_tpu_torch.utils.memory_guard import auto_batch_size
 from pod_compare_tpu_torch.utils.profiling import trace
 
 _SEED_HIGH = 2 ** 63 - 1
@@ -65,23 +76,16 @@ def load_predictor_params(cfg):
     return load_params(cfg.OUTPUT_DIR), None
 
 
-def _refuse_unported(cfg, batch_size, resume, mesh, run_pdq) -> None:
+def _refuse_unported(cfg, resume, mesh) -> None:
     if not resume:
         raise ValueError("apply_net: resume=False asks for a fresh run, but the weights are "
                          "always `params`/`params_list` or the latest checkpoints under "
                          "cfg.OUTPUT_DIR")
-    refusals = [
-        (batch_size in ("auto", 0, None),
-         "batch_size='auto' (a peak-memory guard, ROADMAP §1 C3)"),
-        (run_pdq, "run_pdq (ROADMAP §1 C2)"),
-        (mesh is not None or cfg.PARALLEL.NUM_DEVICES not in (-1, 1)
-         or (torch.distributed.is_available() and torch.distributed.is_initialized()
-             and torch.distributed.get_world_size() > 1),
-         "more than one process or device (ROADMAP §1 B4)"),
-    ]
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(f"apply_net: {what} is not ported yet")
+    if (mesh is not None or cfg.PARALLEL.NUM_DEVICES not in (-1, 1)
+            or (torch.distributed.is_available() and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1)):
+        raise NotImplementedError("apply_net: more than one process or device (ROADMAP §1 B4) "
+                                  "is not ported yet")
 
 
 def run_inference(
@@ -114,9 +118,15 @@ def run_inference(
     `device` is where the predictor and the scoring rules run: CUDA unless
     given. `resume` is there for the JAX CLI's signature and must stay True:
     there is no fresh run, the weights are `params`/`params_list` or the
-    checkpoints."""
-    _refuse_unported(cfg, batch_size, resume, mesh, run_pdq)
+    checkpoints. `batch_size` 'auto' (or 0 or None) measures the largest
+    batch that fits the card (``utils.memory_guard.auto_batch_size``; a
+    ValueError on the CPU) and sets the loader's batch to it; the summary
+    then holds it as ``auto_batch``."""
+    _refuse_unported(cfg, resume, mesh)
+    auto_batch = batch_size in ("auto", 0, None)
     device = resolve_device(device)
+    if auto_batch and device.type != "cuda":
+        raise ValueError(f"batch_size='auto' measures peak memory on CUDA, not on {device}")
     logger = setup_logger(name="pod_compare_tpu_torch")
     output_dir = inference_output_dir(cfg, test_dataset, inference_name)
     os.makedirs(output_dir, exist_ok=True)
@@ -125,7 +135,7 @@ def run_inference(
     if own_loader:
         loader = TestLoader(
             get_dataset(test_dataset),
-            batch_size=batch_size,
+            batch_size=1 if auto_batch else batch_size,
             min_size=cfg.INPUT.MIN_SIZE_TEST,
             max_size=cfg.INPUT.MAX_SIZE_TEST,
             divisibility=cfg.INPUT.SIZE_DIVISIBILITY,
@@ -137,6 +147,10 @@ def run_inference(
             params, params_list = load_predictor_params(cfg)
         predictor = build_predictor(cfg, loader.canvas, params, device=device,
                                     state_dicts=params_list)
+    auto_info = None
+    if auto_batch:
+        loader.batch_size, auto_info = auto_batch_size(
+            predictor, loader.canvas, log=logger.info)
 
     train_dataset = cfg.DATASETS.TRAIN[0]
     cat_mapping = model_to_dataset_id_map(train_dataset, test_dataset)
@@ -197,6 +211,8 @@ def run_inference(
         "images_per_second": images_per_second,
         "inference_output_dir": output_dir,
     }
+    if auto_info is not None:
+        summary["auto_batch"] = dict(auto_info, batch=loader.batch_size)
     start = time.time()
     if run_map:
         stats, threshold = evaluate_average_precision(
@@ -215,6 +231,22 @@ def run_inference(
             output_dir, test_dataset, train_dataset,
             min_allowed_score=min_allowed_score, verbose=verbose,
         )
+    if run_pdq:
+        # The optimal-F1 threshold of mAP_res.txt unless one is given, so
+        # that PDQ scores the same detections as the other metrics.
+        pdq_score = min_allowed_score
+        if pdq_score is None:
+            try:
+                pdq_score = read_optimal_score_threshold(output_dir)
+            except FileNotFoundError:
+                pdq_score = 0.0
+        pdq_start = time.time()
+        summary["pdq"] = evaluate_pdq(
+            output_dir, get_dataset(test_dataset).json_file,
+            dataset_id_to_model_contiguous_map(train_dataset, test_dataset),
+            min_allowed_score=pdq_score, verbose=verbose,
+        )
+        summary["pdq_seconds"] = time.time() - pdq_start
     summary["evaluation_seconds"] = time.time() - start
     logger.info(f"Evaluation in {summary['evaluation_seconds']:.1f}s")
     return summary
@@ -240,9 +272,11 @@ def main(args, batch_size: int = 8, profile: bool = False, device=None):
 
 if __name__ == "__main__":
     parser = setup_arg_parser()
-    parser.add_argument("--batch-size", default="8", help="images per batch")
+    parser.add_argument("--batch-size", default="8",
+                        help="images per batch, or 'auto': the largest that fits the card")
     parser.add_argument("--profile", action="store_true")
-    parser.add_argument("--run-pdq", action="store_true", dest="run_pdq")
+    parser.add_argument("--run-pdq", action="store_true", dest="run_pdq",
+                        help="also score with PDQ (evaluation/pdq.py)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: CUDA; raises without it)")
     args = parser.parse_args()

@@ -1,5 +1,6 @@
-"""The metric suite: COCO mAP, matching, scoring rules, calibration and
-MUE; the port's copy of ``pod_compare_tpu/evaluation`` without PDQ."""
+"""The metric suite: COCO mAP, matching, scoring rules, calibration, MUE
+and PDQ (``evaluation.pdq``); the port's copy of
+``pod_compare_tpu/evaluation``."""
 
 from pod_compare_tpu_torch.evaluation.average_precision import (
     evaluate_average_precision,

@@ -74,13 +74,13 @@ class ProbabilisticPredictor:
     float32 convolutions and products run in full float32 as on the CPU.
     ``SPLIT_HEAD_PROGRAM`` lays out XLA programs in the JAX package; here it
     changes nothing, but it is refused where the JAX package refuses it.
+    ``HEAD_QUANT`` 'int8' runs the head's tower convs in int8
+    (``ops/quant.py``); any value but 'none' and 'int8' raises ValueError.
     """
 
     def __init__(self, cfg, image_size: Sequence[int], state_dict=None, device=None,
                  state_dicts=None):
         pi = cfg.PROBABILISTIC_INFERENCE
-        if pi.HEAD_QUANT != "none":
-            raise NotImplementedError(f"HEAD_QUANT={pi.HEAD_QUANT!r} is not ported yet")
         self.mode = pi.INFERENCE_MODE
         if self.mode not in MODES:
             raise ValueError(f"Invalid inference mode {self.mode}.")
@@ -144,7 +144,7 @@ class ProbabilisticPredictor:
         self.sampled = pi.CLS_SAMPLING != "analytic" or pi.BOX_SAMPLING != "analytic"
 
     def _load(self, state_dict):
-        model = build_model(self.cfg)
+        model = build_model(self.cfg, head_quant=self.cfg.PROBABILISTIC_INFERENCE.HEAD_QUANT)
         model.load_state_dict(state_dict)
         return model.cast_convs().to(self.device).eval()
 

@@ -19,6 +19,14 @@ Parameters are float32; the convolutions compute in the model's
 ``compute_dtype`` (``layers.Conv2d`` casts its weight to the activations'
 dtype). ``init_weights`` draws a fresh model from a generator, with the
 head initialised as the JAX package initialises it.
+
+``head_quant='int8'`` (PROBABILISTIC_INFERENCE.HEAD_QUANT, inference only)
+runs the tower convs through ``ops.quant.quantized_conv3x3`` on their
+float32 weights, as the JAX package's ``TowerConv3`` does: conv 0 sees the
+signed FPN features, the later convs post-ReLU inputs (the unsigned
+activation scale). Their float32 outputs go through ReLU and dropout in
+float32, and are cast to the compute dtype for the output convs, which stay
+unquantized.
 """
 
 import math
@@ -33,8 +41,10 @@ from pod_compare_tpu_torch.models.layers import Conv2d
 from pod_compare_tpu_torch.models.resnet import ResNet
 from pod_compare_tpu_torch.ops.anchors import AnchorGenerator
 from pod_compare_tpu_torch.ops.kernels.dropout import dropout, dropout_autograd
+from pod_compare_tpu_torch.ops.quant import quantized_conv3x3
 
 TOWERS = ("cls_subnet", "bbox_subnet")
+HEAD_QUANT_MODES = ("none", "int8")
 
 
 class TowerDropout:
@@ -111,8 +121,14 @@ class ProbabilisticRetinaNetHead(nn.Module):
         compute_bbox_cov: bool = False,
         bbox_cov_dims: int = 4,
         prior_prob: float = 0.01,
+        quant: str = "none",
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if quant not in HEAD_QUANT_MODES:
+            raise ValueError(f"Unknown head quantization mode {quant!r}.")
+        self.quant = quant
+        self.compute_dtype = compute_dtype
         self.prior_prob = prior_prob
         self.num_classes = num_classes
         self.num_anchors = num_anchors
@@ -149,11 +165,18 @@ class ProbabilisticRetinaNetHead(nn.Module):
     def _convs(self, tower: int) -> List[nn.Conv2d]:
         return list(getattr(self, TOWERS[tower]))[0::2]
 
+    def tower_conv(self, tower: int, layer: int, x: torch.Tensor) -> torch.Tensor:
+        """Tower conv `layer` of `tower`; int8 with `quant`, in float32."""
+        conv = self._convs(tower)[layer]
+        if self.quant == "int8":
+            return quantized_conv3x3(x, conv.weight, conv.bias, act_signed=layer == 0)
+        return conv(x)
+
     def prefix(self, features: Sequence[torch.Tensor]):
         """First tower conv of both towers at every level, before its ReLU.
         It sees no dropout, so a bank of stochastic passes computes it once
         (`rest` runs the other layers per pass)."""
-        return tuple([self._convs(t)[0](f) for f in features] for t in range(2))
+        return tuple([self.tower_conv(t, 0, f) for f in features] for t in range(2))
 
     def _flatten(self, x: torch.Tensor, k: int) -> torch.Tensor:
         # (N, A*k, H, W) -> (N, H*W*A, k), the reference's permute_to_N_HWA_K.
@@ -169,11 +192,10 @@ class ProbabilisticRetinaNetHead(nn.Module):
         for level in range(len(prefix[0])):
             feats = []
             for t in range(2):
-                convs = self._convs(t)
                 x = act(prefix[t][level], t, 0, level)
                 for layer in range(1, self.num_convs):
-                    x = act(convs[layer](x), t, layer, level)
-                feats.append(x)
+                    x = act(self.tower_conv(t, layer, x), t, layer, level)
+                feats.append(x.to(self.compute_dtype))  # the int8 towers' float32 too
             c, b = feats
             outs["box_cls"].append(self._flatten(self.cls_score(c), self.num_classes))
             outs["box_delta"].append(self._flatten(self.bbox_pred(b), 4))
@@ -208,6 +230,7 @@ class ProbabilisticRetinaNet(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
         prior_prob: float = 0.01,
         freeze_at: int = 0,
+        head_quant: str = "none",
     ):
         super().__init__()
         self.dropout_rate = dropout_rate
@@ -217,6 +240,7 @@ class ProbabilisticRetinaNet(nn.Module):
         self.head = ProbabilisticRetinaNetHead(
             num_classes, num_anchors, num_convs, fpn_channels,
             compute_cls_var, compute_bbox_cov, bbox_cov_dims, prior_prob,
+            head_quant, compute_dtype,
         )
         self.register_buffer("pixel_mean", torch.tensor(pixel_mean), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std), persistent=False)
@@ -242,9 +266,14 @@ class ProbabilisticRetinaNet(nn.Module):
         return self
 
     def cast_convs(self) -> "ProbabilisticRetinaNet":
-        """Cast conv weights to the compute dtype; FrozenBN stays float32."""
+        """Cast conv weights to the compute dtype; FrozenBN stays float32, and
+        so do the int8 head's tower convs, which quantize their float32
+        weights."""
+        keep = set()
+        if self.head.quant != "none":
+            keep = {id(c) for t in range(2) for c in self.head._convs(t)}
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, nn.Conv2d) and id(m) not in keep:
                 m.to(self.compute_dtype)
         return self
 
@@ -275,8 +304,10 @@ class ProbabilisticRetinaNet(nn.Module):
         return self.head(features, tower_dropout)
 
 
-def build_model(cfg) -> ProbabilisticRetinaNet:
-    """The flagship model from a config node (cf. the JAX `build_model`)."""
+def build_model(cfg, head_quant: str = "none") -> ProbabilisticRetinaNet:
+    """The flagship model from a config node (cf. the JAX `build_model`);
+    the inference predictor passes PROBABILISTIC_INFERENCE.HEAD_QUANT as
+    `head_quant`."""
     pm = cfg.MODEL.PROBABILISTIC_MODELING
     num_anchors = len(cfg.MODEL.ANCHOR_GENERATOR.SIZES[0]) * len(
         cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0]
@@ -299,6 +330,7 @@ def build_model(cfg) -> ProbabilisticRetinaNet:
         ),
         prior_prob=cfg.MODEL.RETINANET.PRIOR_PROB,
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
+        head_quant=head_quant,
     )
 
 

@@ -2,13 +2,15 @@
 
 Counterpart of ``pod_compare_tpu/ops/losses.py``: focal, smooth L1, the
 stochastic (loss-attenuation) focal loss, the diagonal and full Gaussian NLL
-box losses, second-moment matching, annealing and the EMA loss normalizer.
+box losses, second-moment matching, the energy score, annealing and the EMA
+loss normalizer.
 Every loss takes explicit validity or positivity masks and returns a masked
 sum; the caller divides by the loss normalizer.
 """
 
 import torch
 
+from pod_compare_tpu_torch.ops.gaussian import covariance_output_to_cholesky
 from pod_compare_tpu_torch.ops.kernels.focal import LOG_VAR_CLAMP, stochastic_focal_elem
 
 
@@ -124,8 +126,6 @@ def second_moment_matching_box_loss(pred_deltas, gt_deltas, pred_cov_params, pos
         var_term = smooth_l1_loss(torch.exp(s), residual * residual, beta)
         loss = (base + var_term).sum(dim=-1)
     else:
-        from pod_compare_tpu_torch.ops.gaussian import covariance_output_to_cholesky
-
         params = torch.cat(
             [torch.clamp(pred_cov_params[..., 0:4], -log_var_clamp, log_var_clamp),
              pred_cov_params[..., 4:]], dim=-1,
@@ -135,6 +135,51 @@ def second_moment_matching_box_loss(pred_deltas, gt_deltas, pred_cov_params, pos
         outer = residual[..., :, None] * residual[..., None, :]
         loss = base.sum(dim=-1) + smooth_l1_loss(cov, outer, beta).sum(dim=(-2, -1))
     return _masked_sum(loss, pos_mask)
+
+
+def positive_slots(pos_mask: torch.Tensor, max_positives: int):
+    """(index, weight) of `max_positives` slots per image (B, P): the first
+    positives in index order, then the first non-positives with weight 0;
+    `jax.lax.top_k` of the 0/1 mask picks the same indices (it breaks ties
+    by the lowest index; ``torch.topk`` does not)."""
+    score = pos_mask.to(torch.float32)
+    p = min(max_positives, score.shape[-1])
+    idx = torch.sort(-score, dim=-1, stable=True).indices[..., :p]
+    return idx, torch.gather(score, -1, idx)
+
+
+def energy_score_box_loss(pred_deltas, gt_deltas, pred_cov_params, pos_mask,
+                          num_samples: int = 1000, beta: float = 0.0,
+                          log_var_clamp: float = 7.0, max_positives: int = 256,
+                          chunk: int = 50, generator=None):
+    """Energy-score box loss (masked sum),
+
+        ES = mean_i d(s_i, gt) - 0.5 · mean_i d(s_i, s'_i),  s_i ~ N(mu, L L^T),
+
+    with d the smooth-L1 distance summed over the 4 box dims. Positives go
+    into `max_positives` slots per image (`positive_slots`; any beyond are
+    dropped). The draws come in ceil(num_samples/chunk) chunks of chunk + 1
+    normals from `generator` (on the inputs' device): a chunk's first
+    `chunk` samples give the attraction term, its consecutive pairs the
+    repulsion term, all n = chunks·chunk of each averaged. A 4-parameter head
+    samples mu + z·exp(0.5·clip(s, ±log_var_clamp)), a 10-parameter head
+    mu + L z through its Cholesky factor."""
+    idx, weight = positive_slots(pos_mask, max_positives)
+    take = lambda x: torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    mu, gt, cov = take(pred_deltas), take(gt_deltas), take(pred_cov_params)
+    n_chunks = -(-num_samples // chunk)
+    z = torch.randn((n_chunks, chunk + 1) + tuple(mu.shape), generator=generator,
+                    device=mu.device, dtype=mu.dtype)
+    if cov.shape[-1] == 4:
+        samples = mu + z * torch.exp(0.5 * torch.clamp(cov, -log_var_clamp, log_var_clamp))
+    else:
+        params = torch.cat([torch.clamp(cov[..., 0:4], -log_var_clamp, log_var_clamp),
+                            cov[..., 4:]], dim=-1)
+        samples = mu + (covariance_output_to_cholesky(params) @ z[..., None]).squeeze(-1)
+    attract = smooth_l1_loss(samples[:, :chunk], gt, beta).sum(dim=-1).sum(dim=(0, 1))
+    repulse = smooth_l1_loss(samples[:, :chunk], samples[:, 1:], beta).sum(dim=-1).sum(dim=(0, 1))
+    n = float(n_chunks * chunk)
+    return ((attract / n - 0.5 * repulse / n) * weight).sum()
 
 
 def annealing_weight(step, annealing_step: int) -> torch.Tensor:

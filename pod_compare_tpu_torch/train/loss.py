@@ -2,11 +2,12 @@
 
 Counterpart of ``pod_compare_tpu/train/loss.py``: the focal classification
 loss, sampled from the predicted logit Gaussians under loss attenuation;
-smooth-L1 box regression, or the diagonal (or full) Gaussian NLL mixed in by
-the exponential annealing schedule; and the EMA loss normalizer over the
-batch's positive-anchor count. Ground truth comes padded with validity
-masks. Everything stays on the device: nothing here reads a value back to
-the host.
+smooth-L1 box regression, or the diagonal (or full) Gaussian NLL,
+second-moment matching or the energy score mixed in by the exponential
+annealing schedule; and the EMA loss normalizer over the batch's
+positive-anchor count. Ground truth comes padded with validity masks.
+Everything stays on the device: nothing here reads a value back to the
+host.
 """
 
 from dataclasses import dataclass
@@ -30,9 +31,10 @@ class LossConfig:
     cls_var_num_samples: int = 10
     cls_var_shared_batch: bool = False
     cls_var_impl: str = "threefry"  # 'threefry' | 'pallas' (the fused kernel)
-    # 'none' | 'negative_log_likelihood' | 'second_moment_matching'
+    # 'none' | 'negative_log_likelihood' | 'second_moment_matching' | 'energy_loss'
     bbox_cov_loss: str = "none"
     bbox_cov_type: str = "diagonal"  # 'diagonal' | 'full'
+    bbox_cov_num_samples: int = 1000  # the energy score's draws
     annealing_step: int = 80000
     loss_normalizer_momentum: float = 0.9
     box_reg_weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
@@ -52,6 +54,7 @@ class LossConfig:
             cls_var_impl=pm.CLS_VAR_LOSS.IMPL,
             bbox_cov_loss=pm.BBOX_COV_LOSS.NAME,
             bbox_cov_type=pm.BBOX_COV_LOSS.COVARIANCE_TYPE,
+            bbox_cov_num_samples=pm.BBOX_COV_LOSS.NUM_SAMPLES,
             annealing_step=pm.ANNEALING_STEP or cfg.SOLVER.STEPS[1],
             loss_normalizer_momentum=cfg.MODEL.RETINANET.LOSS_NORMALIZER_MOMENTUM,
             box_reg_weights=tuple(cfg.MODEL.RETINANET.BBOX_REG_WEIGHTS),
@@ -75,6 +78,13 @@ def encode_deltas(anchors, target_boxes, weights=(1.0, 1.0, 1.0, 1.0)) -> torch.
     )
 
 
+def box_seed(seed: int) -> int:
+    """The energy score's generator seed from a step's int32 loss seed: in
+    [2^32, 2^33), so never the seed the 'threefry' focal loss gives its own
+    generator."""
+    return (seed & 0xFFFFFFFF) + 2 ** 32
+
+
 def compute_losses(
     outputs: Dict[str, Optional[torch.Tensor]],
     anchors: torch.Tensor,
@@ -94,7 +104,9 @@ def compute_losses(
         gt_*: padded per-image ground truth, (B, G, 4), (B, G), (B, G).
         loss_normalizer: the EMA carry, a float32 tensor on the device.
         step: the iteration, for annealing.
-        seed: int32 seed of the stochastic classification loss.
+        seed: int32 seed of the stochastic classification loss; the energy
+            score draws from a generator on the device seeded with
+            `box_seed(seed)`.
     """
     labels = label_anchors_batch(
         anchors, gt_boxes, gt_classes, gt_valid, lc.num_classes, lc.iou_thresholds
@@ -143,11 +155,18 @@ def compute_losses(
     ) / norm
     if lc.bbox_cov_loss == "none":
         loss_box_reg = standard_reg
-    elif lc.bbox_cov_loss in ("negative_log_likelihood", "second_moment_matching"):
+    elif lc.bbox_cov_loss in ("negative_log_likelihood", "second_moment_matching",
+                              "energy_loss"):
         cov = outputs["box_reg_var"]
         if cov is None:
             raise ValueError(f"{lc.bbox_cov_loss} requires the bbox_cov head")
-        if lc.bbox_cov_loss == "second_moment_matching":
+        if lc.bbox_cov_loss == "energy_loss":
+            generator = torch.Generator(device=pred_deltas.device).manual_seed(box_seed(seed))
+            prob = L.energy_score_box_loss(
+                pred_deltas, gt_deltas, cov, pos_mask, lc.bbox_cov_num_samples,
+                lc.smooth_l1_beta, generator=generator,
+            )
+        elif lc.bbox_cov_loss == "second_moment_matching":
             prob = L.second_moment_matching_box_loss(
                 pred_deltas, gt_deltas, cov, pos_mask, lc.smooth_l1_beta
             )

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pod_compare_tpu_torch.cli import apply_net  # a module: apply_net imports train too
 from pod_compare_tpu_torch.data.datasets import get_dataset
@@ -112,10 +113,19 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 
 
 class TrainStep:
-    """Forward, losses, backward and the SGD update of one step."""
+    """Forward, losses, backward and the SGD update of one step.
+
+    With PARALLEL.REMAT the model's forward runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the JAX step wraps its
+    forward in ``jax.checkpoint``: its activations are recomputed in the
+    backward instead of kept. The recomputation replays the dropout masks
+    from the seeds drawn before the forward, and nothing inside it draws
+    from a generator (``checkpoint`` restores only the default generators'
+    states), so the gradients are the same."""
 
     def __init__(self, cfg, anchors: torch.Tensor):
         self.anchors = anchors
+        self.remat = bool(cfg.PARALLEL.REMAT)
         self.lc = LossConfig.from_config(cfg)
         self.schedule = make_schedule_fn(cfg)
         self.num_convs = cfg.MODEL.RETINANET.NUM_CONVS
@@ -136,9 +146,13 @@ class TrainStep:
         of one forward; `tower_dropout` replaces the kernel's masks."""
         model = state.model
         if tower_dropout is None:
-            outputs = model.forward_train(batch["images"], seeds, self.shared_masks)
+            forward, args = model.forward_train, (batch["images"], seeds, self.shared_masks)
         else:
-            outputs = model(batch["images"], tower_dropout)
+            forward, args = model, (batch["images"], tower_dropout)
+        if self.remat:
+            outputs = checkpoint(forward, *args, use_reentrant=False)
+        else:
+            outputs = forward(*args)
         losses, new_norm = compute_losses(
             outputs, self.anchors, batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"],
             state.loss_normalizer, state.step, self.lc, loss_seed,

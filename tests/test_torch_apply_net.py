@@ -20,7 +20,10 @@ checkpoint under OUTPUT_DIR by ``load_params``. Two configurations:
 Tolerances, as ``test_torch_pipeline.py`` states them: the detections per
 image, their classes and order exactly; boxes and covariances 1e-4
 relative (1e-3 absolute), class probabilities 1e-4 relative (1e-6
-absolute). Every metric: 1e-6 relative.
+absolute). Every metric: 1e-6 relative; PDQ (``run_pdq``): 1e-4 relative,
+since its spatial quality, an exponential of a sum of log-probabilities over
+each box's pixels, carries the detections' own 1e-4 (on one json the two
+packages' PDQ agree to 1e-12, ``test_torch_pdq.py``).
 """
 
 import json
@@ -132,7 +135,7 @@ def _run_both(setup, mode):
     # standard_nms scores above the optimal-F1 threshold read back from
     # mAP_res.txt; the flagship scores every detection, so that the random
     # weights' detections meet the ground truth and the metrics are numbers.
-    kw = dict(batch_size=3, verbose=False,
+    kw = dict(batch_size=3, verbose=False, run_pdq=True,
               min_allowed_score=None if mode == "standard_nms" else 0.0)
     if mode == "standard_nms":
         theirs = jax_run_inference(jcfg, NAME, mode, params=params, **kw)
@@ -150,20 +153,27 @@ def _run_both(setup, mode):
     return ours, theirs
 
 
+def _gt_annotations(summary):
+    from pod_compare_tpu_torch.data.datasets import get_dataset
+
+    with open(get_dataset(NAME).json_file) as f:
+        return json.load(f)["annotations"]
+
+
 def _results(summary):
     with open(os.path.join(summary["inference_output_dir"], "coco_instances_results.json")) as f:
         return json.load(f)
 
 
-def _assert_metrics_close(ours, theirs):
-    assert ours.keys() - {"evaluation_seconds"} == theirs.keys()
+def _assert_metrics_close(ours, theirs, rtol=1e-6):
+    assert ours.keys() - {"evaluation_seconds", "pdq_seconds"} == theirs.keys()
     for k, v in theirs.items():
         if isinstance(v, dict):
-            _assert_metrics_close(ours[k], v)
+            _assert_metrics_close(ours[k], v, 1e-4 if k == "pdq" else rtol)
         elif isinstance(v, float) and np.isnan(v):
             assert np.isnan(ours[k]), k
         elif k not in ("inference_output_dir", "images_per_second"):
-            np.testing.assert_allclose(ours[k], v, rtol=1e-6, atol=0, err_msg=k)
+            np.testing.assert_allclose(ours[k], v, rtol=rtol, atol=0, err_msg=k)
 
 
 @pytest.fixture(scope="module", params=list(CONFIGS))
@@ -205,8 +215,6 @@ def test_run_inference_needs_a_device_without_cuda(setup, tmp_path):
 
 
 @pytest.mark.parametrize("what,kw,opts", [
-    ("batch_size='auto'", dict(batch_size="auto"), []),
-    ("run_pdq", dict(run_pdq=True), []),
     ("more than one process or device", {}, ["PARALLEL.NUM_DEVICES", 4]),
 ])
 def test_unported_options_are_refused(tmp_path, what, kw, opts):
@@ -214,6 +222,28 @@ def test_unported_options_are_refused(tmp_path, what, kw, opts):
     cfg.merge_from_list(opts)
     with pytest.raises(NotImplementedError, match=what.split("'")[0]):
         run_inference(cfg, NAME, "standard_nms", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("batch_size", ["auto", 0, None])
+def test_auto_batch_size_on_the_cpu_raises(setup, tmp_path, batch_size):
+    """The automatic batch measures peak memory on the card: on the CPU it
+    raises before anything is loaded or written."""
+    cfg, _ = _cfgs("standard_nms", tmp_path)
+    with pytest.raises(ValueError, match="auto"):
+        run_inference(cfg, NAME, "standard_nms", device="cpu", params=setup[2],
+                      batch_size=batch_size)
+    assert not os.path.exists(tmp_path / "inference")
+
+
+def test_run_pdq_scores_the_json(both):
+    """PDQ on the json of each configuration: in the summary, in [0, 1],
+    with true positives, scored at the threshold the other metrics use."""
+    mode, (ours, _) = both
+    pdq = ours["pdq"]
+    assert 0.0 < pdq["pdq"] <= 1.0 and pdq["tp"] > 0
+    assert pdq["tp"] + pdq["fn"] == sum(
+        1 for _ in _gt_annotations(ours)), "every gt box is a TP or an FN"
+    assert ours["pdq_seconds"] > 0
 
 
 def test_profile_traces_the_inference_loop(setup, tmp_path):

@@ -32,7 +32,9 @@ def _assert_planes_match(ours, theirs, tol=1e-5):
         assert a.shape == b.shape, name
         scale = np.abs(b).max()
         err = np.abs(a - b).max()
-        assert err <= tol * scale, f"{name}: max abs {err}, scale {scale}"
+        at = np.unravel_index(np.abs(a - b).argmax(), a.shape)
+        assert err <= tol * scale, (f"{name}: max abs {err}, scale {scale}, at {at}: "
+                                    f"{a[at]!r} against {b[at]!r}")
 
 
 @pytest.mark.parametrize("num_samples", [1, 3, 10])

@@ -49,6 +49,8 @@ def test_every_module_imports_with_jax_and_its_package_blocked():
     ]
     assert len(modules) >= 20
     for name in ("cli.apply_net", "cli.convert_torch_checkpoint", "cli.train_net",
+                 "cli.visualize_predictions", "evaluation.pdq", "ops.quant",
+                 "utils.memory_guard", "visualization", "visualization.visualizer",
                  "config.setup", "data.converters", "data.converters.common",
                  "data.converters.convert_bdd_to_coco", "data.converters.convert_kitti_to_coco",
                  "data.converters.convert_lyft_to_coco", "data.datasets", "data.loader",

@@ -248,13 +248,14 @@ def test_mc_bank_masks_shared_or_per_image(slice_setup, shared):
     assert not torch.equal(run_deltas[0], run_deltas[1])
 
 
-def test_predictor_refuses_the_unported_int8_head():
-    """HEAD_QUANT int8 builds the JAX package's int8 head; the port has none
-    yet, so its predictor raises instead of running the float head."""
+def test_predictor_refuses_an_unknown_head_quant():
+    """HEAD_QUANT takes 'none' or 'int8' (tests/test_torch_quant.py); any
+    other value raises, as the JAX package's TowerConv3 does, instead of
+    running the float head."""
     cfg = merge_configs(TRAIN_CFG, INFER_CFG, OVERRIDES + [
-        "PROBABILISTIC_INFERENCE.HEAD_QUANT", "int8"])
+        "PROBABILISTIC_INFERENCE.HEAD_QUANT", "int4"])
     state_dict = build_model(merge_configs(TRAIN_CFG, INFER_CFG, OVERRIDES)).state_dict()
-    with pytest.raises(NotImplementedError, match="HEAD_QUANT"):
+    with pytest.raises(ValueError, match="Unknown head quantization mode 'int4'"):
         build_predictor(cfg, IMAGE_SIZE, state_dict, device="cpu")
 
 
