@@ -28,8 +28,10 @@ Phases, each printing its seconds on its own line as it ends:
      finite and within 1e-5 of its scale; kernel time (CUDA-graph replay,
      L2-cold), its bound (the largest of bytes, instruction issue and MUFU
      work, counted from the function), the plain version's time, and the
-     'threefry' sample bank's for context. With --parent DIR, the focal
-     kernel of the checkout in DIR too, timed in turns with this one.
+     'threefry' sample bank's for context; a data-parallel process's rows
+     [2:] launched at their index base, bit-identical to the whole launch's
+     rows. With --parent DIR, the focal kernel of the checkout in DIR too,
+     bit-identical to this one at index base 0 and timed in turns with it.
   6. dropout backward: the dropout kernel's forward and its seed-replay
      backward against their plain versions at the P3 shape of a training
      step, bf16 and f32, per-sample and batch-shared masks, channels_last
@@ -112,6 +114,35 @@ Phases, each printing its seconds on its own line as it ends:
      estimate; one flagship train step without and with PARALLEL.REMAT from
      the same state and seeds: losses equal, gradients within 1e-5 of
      scale, REMAT's peak lower.
+ 13. parallel: more than one process (parallel/), on 8 of phase 9's PNGs
+     and its checkpoint: apply_net's main on the flagship in one process
+     spawned by parallel.launch (NCCL) against the same run without a
+     process group; two processes on the one card (gloo: NCCL refuses two
+     ranks on a device) on standard_nms, the merged json against one
+     process's, and on the flagship, each rank's part against a one-process
+     run over its shard alone (detections matched by class and IoU, at most
+     1% flips, values within 1e-3); --num-devices above the card count
+     refused, naming both numbers; train_net's main (the flagship training
+     config with the focal kernel, float32, batch 4, three steps and an
+     evaluation, on phase 10's JPEGs warm-started from its .pkl) on two
+     processes sharing the card (gloo over CUDA tensors), launched as
+     --num-devices launches them, against train_net's main on one process
+     and twice on one process taking each step's backward over the two
+     processes' rows in turn: 240 dropout and 3 focal launches per rank (the
+     kernels line's), the same checkpoints and metrics rows, the logged
+     losses within 1e-5 relative, the evaluation's json matched as above,
+     the weights' gaps printed; then three data-parallel steps of that
+     config on generated batches at 736x1280, each against the one-process
+     step from the same state and against the same step with its backward
+     over the two processes' rows in turn: weights bit-identical across the
+     ranks, losses within 1e-5 relative, every weight within 1e-5 of its
+     scale, every gradient within 1e-5 of the rows' sum and 6e-5 of the
+     one-process step's (which sums over the four images in one call),
+     ReLU and log-variance clamp gates that differ at most 1e-5 of them, 80
+     dropout and 1 focal launches per rank, ms/step per rank beside the
+     one process's; phase 11's five ensemble members placed by
+     create_ensemble_placement, bit-identical to the unplaced predictor;
+     resize_and_pad of two 720x1280 frames on the card against the CPU.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 
 It needs a CUDA device and the repository around it; it exits non-zero
@@ -123,6 +154,7 @@ import contextlib
 import ctypes
 import hashlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -142,8 +174,9 @@ import torch
 from pod_compare_tpu_torch import native
 from pod_compare_tpu_torch.cli import train_net
 from pod_compare_tpu_torch.cli.apply_net import main as apply_net_main
+from pod_compare_tpu_torch.cli.apply_net import run_inference
 from pod_compare_tpu_torch.cli.visualize_predictions import visualize_dataset
-from pod_compare_tpu_torch.config import merge_configs, setup_arg_parser
+from pod_compare_tpu_torch.config import merge_configs, setup_arg_parser, setup_config
 from pod_compare_tpu_torch.data import TestLoader, TrainLoader, get_dataset, load_image_bgr
 from pod_compare_tpu_torch.data.converters.common import (
     BDD_CATEGORIES,
@@ -186,9 +219,21 @@ from pod_compare_tpu_torch.ops.kernels import dropout as kdropout
 from pod_compare_tpu_torch.ops.kernels import focal as kfocal
 from pod_compare_tpu_torch.ops.matcher import label_anchors_batch
 from pod_compare_tpu_torch.ops import quant as pquant
+from pod_compare_tpu_torch.ops.preprocess import resize_and_pad
+from pod_compare_tpu_torch.parallel import (
+    BatchShard,
+    barrier,
+    create_ensemble_placement,
+    gather_process_results,
+    launch,
+    local_device,
+    process_count,
+    process_index,
+)
 from pod_compare_tpu_torch.train import RandomBatches, Trainer, create_train_state, make_train_step
 from pod_compare_tpu_torch.train import trainer as trainer_module
 from pod_compare_tpu_torch.train.checkpoint import Checkpointer, load_params
+from pod_compare_tpu_torch.train import loss as ptrain_loss
 from pod_compare_tpu_torch.train.loss import LossConfig, box_seed, encode_deltas
 from pod_compare_tpu_torch.train.trainer import batch_to_device
 from pod_compare_tpu_torch.utils.memory_guard import BATCH_CANDIDATES, BUDGET_FRACTION
@@ -728,19 +773,26 @@ def parent_library(parent: str, source: str) -> ctypes.CDLL:
     return module.load(source)
 
 
-def launch_focal(fn, x, s, t, seed: int, num_samples: int, outs) -> None:
-    """One launch of a pod_focal_forward from another build (the parent's)."""
-    err = fn(x.data_ptr(), s.data_ptr(), t.data_ptr(), *(o.data_ptr() for o in outs), x.numel(),
-             kfocal._int32(seed), num_samples, 0.25, 2.0, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"parent focal kernel launch failed with cudaError_t {err}")
-
-
 def parent_focal(parent: str):
-    """The focal kernel of the checkout at `parent`, bound like this one's."""
+    """One launch of the focal kernel of the checkout at `parent` (another
+    commit's), as ``launch(x, s, t, seed, num_samples, outs)``; at index
+    base 0 where its signature has one (after n)."""
     fn = parent_library(parent, "focal.cu").pod_focal_forward
-    fn.argtypes, fn.restype = kfocal._library().argtypes, ctypes.c_int
-    return fn
+    with open(os.path.join(parent, "pod_compare_tpu_torch", "csrc", "focal.cu")) as f:
+        base = (0,) if "long long index_base" in f.read() else ()
+    argtypes = list(kfocal._library().argtypes)
+    if not base:
+        del argtypes[7]
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+    def launch_parent(x, s, t, seed: int, num_samples: int, outs) -> None:
+        err = fn(x.data_ptr(), s.data_ptr(), t.data_ptr(), *(o.data_ptr() for o in outs),
+                 x.numel(), *base, kfocal._int32(seed), num_samples, 0.25, 2.0,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"parent focal kernel launch failed with cudaError_t {err}")
+
+    return launch_parent
 
 
 def check_focal_kernel(seed: int, card: str, num_anchors: int, parent=None):
@@ -812,26 +864,43 @@ def check_focal_kernel(seed: int, card: str, num_anchors: int, parent=None):
             f"{bound_ms:.4f} ms (bytes {bytes_bound:.4f}, instruction issue {issue_bound:.4f} "
             f"for {instructions} instructions, MUFU {mufu_bound:.4f} for {mufu}), "
             f"{100 * bound_ms / ms:.1f}% of the bound ({card})")
-        turns = None
+        # A data-parallel process's rows [2:] of the batch, launched at their
+        # first element's index: the whole launch's rows, bit for bit.
+        half = TRAIN_BATCH // 2
+        part = kfocal.focal_cuda(*(a[half:].clone() for a in (x, s, t)), seed + 11, num_samples,
+                                 index_base=half * x[0].numel())
+        based = all(torch.equal(a, b[half:]) for a, b in zip(part, k))
+        if not based:
+            raise AssertionError(f"focal S={num_samples}: rows [{half}:] at their index base "
+                                 "differ from the whole launch's")
+        log(f"focal S={num_samples}: rows [{half}:] launched at index base "
+            f"{half * x[0].numel()} bit-identical to the whole launch's rows")
+        turns = parent_same = None
         if parent_fn is not None:
             outs = [tuple(torch.empty_like(x) for _ in range(3)) for _ in sets]
-            old = [lambda a=a, o=o: launch_focal(parent_fn, *a, seed, num_samples, o)
+            old = [lambda a=a, o=o: parent_fn(*a, seed, num_samples, o)
                    for a, o in zip(sets, outs)]
-            launch_focal(parent_fn, x, s, t, seed + 11, num_samples, outs[0])
+            parent_fn(x, s, t, seed + 11, num_samples, outs[0])
             parent_err = max(float((a - b).abs().max()) for a, b in zip(outs[0], p))
+            parent_same = all(torch.equal(a, b) for a, b in zip(outs[0], k))
+            if not parent_same:
+                raise AssertionError(f"focal S={num_samples}: this kernel at index base 0 "
+                                     "differs from the parent's")
             turns = {"parent": [], "this": []}
             for who in ("parent", "this", "this", "parent"):
                 turns[who].append(graph_ms(old if who == "parent" else kernel, 20))
             log(f"focal S={num_samples}: in turns (parent, this, this, parent) the parent's "
                 f"kernel {turns['parent'][0]:.4f}/{turns['parent'][1]:.4f} ms, this kernel "
                 f"{turns['this'][0]:.4f}/{turns['this'][1]:.4f} ms; the parent's max abs err vs "
-                f"plain {parent_err:.3e} ({card})")
+                f"plain {parent_err:.3e}, its outputs bit-identical to this kernel's at index "
+                f"base 0 ({card})")
         if num_samples == 10:
             main = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bytes_bound_ms=bytes_bound,
                         issue_bound_ms=issue_bound, mufu_bound_ms=mufu_bound,
                         threefry_ms=threefry_ms, shape=list(shape), ptxas=main_ptxas,
-                        sass=sass, in_turns_ms=turns)
+                        sass=sass, in_turns_ms=turns, index_base_bit_identical=based,
+                        parent_bit_identical=parent_same)
     return main
 
 
@@ -1527,8 +1596,7 @@ def run_train_net(seed: int, card: str, work: str):
         raise AssertionError("the process backend's batches differ from the thread backend's")
     jpegs = sorted(os.listdir(os.path.join(root, "images", "100k", "train")))[:8]
     decode_ms, resize_ms = decode_and_resize_ms(
-        [os.path.join(root, "images", "100k", "train", name) for name in jpegs])
-    shutil.rmtree(root)
+        [os.path.join(root, "images", "100k", "train", name) for name in jpegs])  # root stays: phase 13
 
     # Step i's interval runs from step i-1's end: the first holds the
     # trainer's start, the eleventh the checkpoint and evaluation of step 10
@@ -1902,15 +1970,14 @@ def held_against_cpu(name, g, c) -> str:
             + ", ".join(f"{k} {e:.1e}" for k, e in errs.items()))
 
 
-def run_modes_apply_net(seed: int, card: str, work: str, members) -> dict:
-    """Phase 11, part 3: apply_net's main on ensembles_post_nms with five
-    members from their random_seed_<seed> sibling checkpoints, over 8 of
-    phase 9's PNGs."""
+def bdd_subset(work: str, name: str, count: int) -> str:
+    """The first `count` of phase 9's PNGs and their ground truth in BDD's
+    layout under work/name, for --dataset-dir. Returns the root."""
     src = os.path.join(work, "bdd")
-    root = os.path.join(work, "bdd_modes")
+    root = os.path.join(work, name)
     with open(os.path.join(src, "labels", "val_coco_format.json")) as f:
         gt = json.load(f)
-    gt["images"] = gt["images"][:MODES_APPLY_IMAGES]
+    gt["images"] = gt["images"][:count]
     ids = {im["id"] for im in gt["images"]}
     gt["annotations"] = [a for a in gt["annotations"] if a["image_id"] in ids]
     os.makedirs(os.path.join(root, "labels"))
@@ -1920,6 +1987,16 @@ def run_modes_apply_net(seed: int, card: str, work: str, members) -> dict:
     for im in gt["images"]:
         shutil.copy(os.path.join(src, "images", "100k", "val", im["file_name"]),
                     os.path.join(root, "images", "100k", "val", im["file_name"]))
+    return root
+
+
+def run_modes_apply_net(seed: int, card: str, work: str, members) -> dict:
+    """Phase 11, part 3: apply_net's main on ensembles_post_nms with five
+    members from their random_seed_<seed> sibling checkpoints, over 8 of
+    phase 9's PNGs."""
+    root = bdd_subset(work, "bdd_modes", MODES_APPLY_IMAGES)
+    with open(os.path.join(root, "labels", "val_coco_format.json")) as f:
+        ids = {im["id"] for im in json.load(f)["images"]}
 
     infer = "Inference/ensembles_post_nms.yaml"
     cfg = mode_config(infer)
@@ -2387,6 +2464,579 @@ def run_rest(seed: int, card: str, work: str) -> dict:
             "focal": {"energy": energy_launches, "remat_train_step": remat["focal"]}}
 
 
+# ------------------------------------------------------------ parallel phase
+PARALLEL_IMAGES = 8  # of phase 9's PNGs
+PARALLEL_STEPS = 3
+PARALLEL_TIMEOUT_S = 300  # each launch's own limit
+MAX_DDP_GRAD_ERROR = 6e-5  # of each gradient's scale: summation order (run_parallel)
+MAX_SPLIT_GRAD_ERROR = 1e-5  # the processes against their arithmetic in one process
+
+
+def results_json(summary) -> list:
+    with open(os.path.join(summary["inference_output_dir"], "coco_instances_results.json")) as f:
+        return json.load(f)
+
+
+def match_json(name: str, got: list, want: list) -> str:
+    """Phase 11's rule on two results jsons: per image, each of `want`'s
+    detections matched to an unmatched one of `got`'s of its class at IoU >
+    0.99; at most 1% flips; matched boxes, covariances, scores and class
+    probabilities within 1e-3 of their scale. Returns the summary line."""
+    def by_image(records):
+        out = {}
+        for r in records:
+            out.setdefault(r["image_id"], []).append(r)
+        return out
+
+    def xyxy(records):
+        b = torch.tensor([r["bbox"] for r in records], dtype=torch.float64).reshape(-1, 4)
+        return torch.cat([b[:, :2], b[:, :2] + b[:, 2:]], dim=1)
+
+    g_all, w_all = by_image(got), by_image(want)
+    pairs, flips = [], 0
+    for image in set(g_all) | set(w_all):
+        g, w = g_all.get(image, []), w_all.get(image, [])
+        iou = pairwise_iou(xyxy(w), xyxy(g)) if g and w else None
+        free = set(range(len(g)))
+        for i, r in enumerate(w):
+            best = max((j for j in free if g[j]["category_id"] == r["category_id"]),
+                       key=lambda j: float(iou[i, j]), default=None)
+            if best is not None and float(iou[i, best]) > 0.99:
+                pairs.append((r, g[best]))
+                free.discard(best)
+            else:
+                flips += 1
+        flips += len(free)
+    n = len(want)
+    if n == 0 or flips > MAX_MODE_FLIPS * n:
+        raise AssertionError(f"{name}: {flips} of {n} detections differ")
+    errs = {}
+    for field in ("bbox", "bbox_covar", "score", "cls_prob"):
+        a = np.array([p[1][field] for p in pairs], np.float64).reshape(len(pairs), -1)
+        r = np.array([p[0][field] for p in pairs], np.float64).reshape(len(pairs), -1)
+        scale = np.maximum(np.abs(r).max(axis=1, keepdims=True), 1e-6)
+        errs[field] = float((np.abs(a - r) / scale).max())
+        if errs[field] > 1e-3:
+            raise AssertionError(f"{name}: {field} differ: {errs[field]}")
+    return (f"{name} {len(pairs)}/{n} matched, {flips} flips, "
+            + ", ".join(f"{k} {e:.1e}" for k, e in errs.items()))
+
+
+def parallel_apply_net(argv, data_dir: str, device):
+    """One process of a phase-13 apply_net run: ``main`` as the CLI calls it,
+    inside the process group ``launch`` set up. Returns rank 0's summary
+    with every rank's dropout launches."""
+    os.environ["POD_COMPARE_DATA_DIR"] = data_dir
+    kdropout.LAUNCHES = 0
+    summary = apply_net_main(setup_arg_parser().parse_args(argv), batch_size=BATCH,
+                             device=device)
+    return dict(summary, launches=gather_process_results([kdropout.LAUNCHES]),
+                processes=process_count())
+
+
+def parallel_train_net(argv, data_dir: str, device):
+    """One process of phase 13's train_net run: ``train_net.main`` as the CLI
+    calls it, inside the process group ``launch`` set up. Returns rank 0's
+    step and latest scalars with every rank's dropout and focal launches."""
+    os.environ["POD_COMPARE_DATA_DIR"] = data_dir
+    kdropout.LAUNCHES = kfocal.LAUNCHES = 0
+    trainer = train_net.main(setup_arg_parser().parse_args(argv), device=device)
+    return {"step": trainer.state.step, "latest": trainer.storage.latest(),
+            "canvas": trainer.canvas, "processes": process_count(),
+            "launches": gather_process_results([(kdropout.LAUNCHES, kfocal.LAUNCHES)])}
+
+
+def train_net_output(data_dir: str, seed: int) -> str:
+    return os.path.join(data_dir, "BDD-Detection", "retinanet",
+                        os.path.splitext(os.path.basename(TRAIN_CFG))[0], f"random_seed_{seed}")
+
+
+def metrics_rows(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def pack_bits(mask: torch.Tensor):
+    """A bool tensor's bits in row-major order, packed on the host, and its
+    element count."""
+    return np.packbits(mask.cpu().numpy(), axis=None), mask.numel()
+
+
+class RecordingDropout(KernelDropout):
+    """The kernel's dropout recording its output's gates (positive or not)
+    in `GATES`, keyed by (tower, layer, level), bit-packed on the host: the
+    ReLU gates through which the backward passes gradient."""
+
+    GATES = {}
+
+    def __call__(self, x, tower, layer, level):
+        out = super().__call__(x, tower, layer, level)
+        RecordingDropout.GATES[tower, layer, level] = pack_bits(out > 0)
+        return out
+
+
+@contextlib.contextmanager
+def recorded_gates():
+    """Every KernelDropout that ``forward_train`` builds records its gates,
+    and the stochastic focal loss the gate of its log-variance clamp
+    (-10 < s < 10, the other threshold a rounding can cross), under the key
+    "clamp"."""
+    saved = pretinanet.KernelDropout, plosses.stochastic_focal_loss
+    gates = RecordingDropout.GATES
+
+    def focal_loss(logits, log_vars, *args, **kwargs):
+        inside = (log_vars > -kfocal.LOG_VAR_CLAMP) & (log_vars < kfocal.LOG_VAR_CLAMP)
+        gates["clamp"] = pack_bits(inside)
+        return saved[1](logits, log_vars, *args, **kwargs)
+
+    pretinanet.KernelDropout, plosses.stochastic_focal_loss = RecordingDropout, focal_loss
+    try:
+        yield gates
+    finally:
+        pretinanet.KernelDropout, plosses.stochastic_focal_loss = saved
+
+
+def state_bytes(state) -> bytes:
+    buf = io.BytesIO()
+    torch.save(state.state_dict(), buf)
+    return buf.getvalue()
+
+
+def weights_digest(model) -> str:
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def losses_in_parts(step, state, whole, seeds, loss_seed: int, count: int):
+    """``TrainStep.losses`` over the batch `whole` with the arithmetic of
+    `count` processes, in one process: the rows of each process through
+    ``forward_train`` with its shard, each part's loss over the whole
+    batch's positive count (as the all-reduce gives it), the backward of
+    every part but the last taken here and the last's left to the caller.
+    So each gradient is the sum of the parts' gradients, taken in turn, as
+    a data-parallel step (``TrainStep.data_parallel``) sums them."""
+    lc = step.lc
+    classes = label_anchors_batch(step.anchors, whole["gt_boxes"], whole["gt_classes"],
+                                  whole["gt_valid"], lc.num_classes,
+                                  lc.iou_thresholds).gt_classes
+    num_pos = ((classes >= 0) & (classes != lc.num_classes)).sum().to(torch.float32)
+    saved = ptrain_loss.all_reduce_sum
+    ptrain_loss.all_reduce_sum = lambda t: num_pos.to(t.device)
+    parts = []
+    try:
+        for r in range(count):
+            shard = BatchShard.of(whole["images"].shape[0], r, count)
+            part = {k: v[shard.first:shard.first + shard.size] for k, v in whole.items()}
+            outputs = state.model.forward_train(part["images"], seeds, step.shared_masks, shard)
+            losses, norm = ptrain_loss.compute_losses(
+                outputs, step.anchors, part["gt_boxes"], part["gt_classes"], part["gt_valid"],
+                state.loss_normalizer, state.step, lc, loss_seed, shard)
+            if r < count - 1:
+                (losses["loss_cls"] + losses["loss_box_reg"]).backward()
+                losses = {k: v.detach() for k, v in losses.items()}
+            parts.append(losses)
+    finally:
+        ptrain_loss.all_reduce_sum = saved
+    losses = {k: sum(p[k] for p in parts) for k in ("loss_cls", "loss_box_reg")}
+    losses["num_pos_anchors"] = parts[-1]["num_pos_anchors"]
+    return losses["loss_cls"] + losses["loss_box_reg"], losses, norm
+
+
+def split_step_gradients(step, state, whole, seeds, loss_seed: int, count: int) -> None:
+    """Leave in `state`'s model the gradients of one step's loss over
+    `whole` with `count` processes' arithmetic (``losses_in_parts``)."""
+    losses_in_parts(step, state, whole, seeds, loss_seed, count)[0].backward()
+
+
+@contextlib.contextmanager
+def steps_in_parts(count: int):
+    """Every ``TrainStep`` of the trainer takes its losses in `count` parts
+    (``losses_in_parts``): a one-process run with `count` processes'
+    arithmetic."""
+    saved = trainer_module.TrainStep.losses
+    trainer_module.TrainStep.losses = (
+        lambda self, state, batch, seeds, loss_seed, tower_dropout=None:
+        losses_in_parts(self, state, batch, seeds, loss_seed, count))
+    try:
+        yield
+    finally:
+        trainer_module.TrainStep.losses = saved
+
+
+def scaled_errors(got: dict, want: dict) -> dict:
+    """Each tensor's largest difference over its scale (the largest
+    magnitude of `want`'s)."""
+    return {n: float((got[n].to(g) - g).abs().max()) / (float(g.abs().max()) or 1.0)
+            for n, g in want.items()}
+
+
+def parallel_train(seed: int, steps: int, canvas, out_dir: str, device):
+    """One process of phase 13's data-parallel training: the flagship
+    training config with the focal kernel in float32 at full width, a
+    global batch of 4, this process's rows through DistributedDataParallel
+    (``TrainStep.data_parallel``). Before each step rank 0 keeps the state;
+    after it, it takes the one-process step over the whole batch from that
+    state and compares losses, gradients, weights and ReLU gates. Returns,
+    per step, what rank 0 measured and every rank's digest and launches."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = local_device(device)
+    cfg = train_cfg(seed, out_dir, ["PARALLEL.COMPUTE_DTYPE", "float32"])
+    anchors = torch.as_tensor(build_anchor_generator(cfg).concatenated(canvas), device=device)
+    batches = RandomBatches(canvas, TRAIN_BATCH, cfg.MODEL.RETINANET.NUM_CLASSES,
+                            cfg.INPUT.MAX_GT_BOXES, seed=seed)
+    # The backbone warm-started as phase 7's, the head at its training init.
+    weights = convert.from_jax_params(random_jax_params(seed, NUM_CLASSES))
+    state = create_train_state(cfg, device, seed=seed)
+    state.model.load_state_dict({k: v for k, v in weights.items() if k.startswith("backbone.")},
+                                strict=False)
+    step = make_train_step(cfg, anchors)
+    step.data_parallel(state.model)
+    shard = BatchShard.of(TRAIN_BATCH)
+    rows = slice(shard.first, shard.first + shard.size)
+    main_rank = process_index() == 0
+    records = []
+    with recorded_gates() as gates:
+        for k in range(steps):
+            whole = batch_to_device(batches.batch(k), device)
+            local = {key: v[rows] for key, v in whole.items()}
+            before = state_bytes(state) if main_rank else None
+            gates.clear()
+            kdropout.LAUNCHES = kfocal.LAUNCHES = 0
+            sync(device)
+            barrier()  # both ranks start the timed step together
+            t0 = time.perf_counter()
+            metrics = step.global_metrics(step(state, local))
+            sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = (kdropout.LAUNCHES, kfocal.LAUNCHES)
+            grads = {n: p.grad for n, p in state.model.named_parameters() if p.grad is not None}
+            mine = dict(gates)
+            record = {
+                "ms": gather_process_results([ms]),
+                "launches": gather_process_results([launches]),
+                "digests": gather_process_results([weights_digest(state.model)]),
+                "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+                "losses": {key: float(v) for key, v in metrics.items()},
+            }
+            rank_gates = gather_process_results([mine])
+            if main_rank:
+                ref = create_train_state(cfg, device, seed=seed)
+                ref.load_state_dict(torch.load(io.BytesIO(before), weights_only=True))
+                gates.clear()
+                sync(device)
+                t0 = time.perf_counter()
+                ref_metrics = make_train_step(cfg, anchors)(ref, whole)
+                sync(device)
+                record["one_process_ms"] = (time.perf_counter() - t0) * 1e3
+                record["one_process_losses"] = {key: float(v) for key, v in ref_metrics.items()}
+                ref_gates = dict(gates)
+                # The same state once more, the batch's halves backward in
+                # turn: the processes' summation order in one process.
+                halves = create_train_state(cfg, device, seed=seed)
+                halves.load_state_dict(torch.load(io.BytesIO(before), weights_only=True))
+                half_step = make_train_step(cfg, anchors)
+                split_step_gradients(half_step, halves, whole,
+                                     *half_step.draw_seeds(halves.generator), count=2)
+                split = {n: p.grad for n, p in halves.model.named_parameters()
+                         if p.grad is not None}
+                record["split_error"] = max(scaled_errors(grads, split).items(),
+                                            key=lambda kv: kv[1])
+                record["split_against_one_process"] = max(
+                    scaled_errors(split, {n: p.grad for n, p in ref.model.named_parameters()
+                                            if p.grad is not None}).items(),
+                    key=lambda kv: kv[1])
+                del halves, split
+                # A gate tensor in row-major order: rank r's rows are the
+                # r-th run of the one-process step's bits.
+                flips = {"relu": [0, 0], "clamp": [0, 0]}
+                for key, (packed, n) in ref_gates.items():
+                    ref_bits = np.unpackbits(packed, count=n)
+                    count = flips["clamp" if key == "clamp" else "relu"]
+                    for r, theirs in enumerate(rank_gates):
+                        part = np.unpackbits(theirs[key][0], count=theirs[key][1])
+                        want = ref_bits[r * len(part):(r + 1) * len(part)]
+                        count[0] += int((part != want).sum())
+                        count[1] += len(part)
+                record["gate_flips"] = flips
+                errors = {}
+                for n, p in ref.model.named_parameters():
+                    scale = float(p.detach().abs().max()) or 1.0
+                    errors[n] = float((p.detach() - state.model.get_parameter(n).detach())
+                                      .abs().max()) / scale
+                record["weight_error"] = max(errors.items(), key=lambda kv: kv[1])
+                record["grad_error"] = max(scaled_errors(grads, {
+                    n: p.grad for n, p in ref.model.named_parameters() if p.grad is not None
+                }).items(), key=lambda kv: kv[1])
+                del ref
+            records.append(record)
+    return records
+
+
+def run_parallel(seed: int, card: str, work: str, members, device=None, canvas=CANVAS,
+                 opts=()) -> dict:
+    """Phase 13. Returns the dropout and focal launches of its paths. A
+    rehearsal on the CPU passes device 'cpu', a small canvas for the train
+    steps and config overrides for apply_net."""
+    data = os.path.join(work, "data")  # phase 9's checkpoint
+    os.environ["POD_COMPARE_DATA_DIR"] = data
+    root = bdd_subset(work, "bdd_parallel", PARALLEL_IMAGES)
+    base = ["--config-file", TRAIN_CFG, "--dataset-dir", root, "--test-dataset", "bdd_val",
+            "--random-seed", str(seed)]
+    tail = list(opts)
+    flagship = base + ["--inference-config", INFER_CFG]
+    nms = base + ["--inference-config", "Inference/standard_nms.yaml"]
+    ranks = lambda argv, n: argv + ["--num-devices", str(n)] + tail
+    on_card = device is None or str(device).startswith("cuda")
+    shared = device if device is not None else "cuda:0"
+    launches = {}
+
+    # 1. The flagship through launch on one process: NCCL on the card.
+    t0 = time.perf_counter()
+    one_rank = launch(parallel_apply_net, 1, (ranks(flagship, 1), data, device),
+                      device=device, timeout_s=PARALLEL_TIMEOUT_S)
+    one_rank_s = time.perf_counter() - t0
+    one_rank_json = results_json(one_rank)
+    plain = apply_net_main(setup_arg_parser().parse_args(ranks(flagship, 1)),
+                           batch_size=BATCH, device=device)
+    line = match_json("flagship, 1 rank against no process group", one_rank_json,
+                      results_json(plain))
+    launches["apply_net_1_rank"] = one_rank["launches"]
+    log(f"parallel apply_net: {line}; launch of 1 rank ({'NCCL' if on_card else 'gloo'}) "
+        f"{one_rank_s:.2f} s, {one_rank['num_images']} images, dropout launches "
+        f"{one_rank['launches']} ({card})")
+
+    # 2. Two ranks on one card: gloo, since NCCL refuses two ranks on a device.
+    t0 = time.perf_counter()
+    two = {name: launch(parallel_apply_net, 2, (ranks(argv, 2), data, None),
+                        device=shared, backend="gloo", timeout_s=PARALLEL_TIMEOUT_S)
+           for name, argv in (("standard_nms", nms), ("flagship", flagship))}
+    two_s = time.perf_counter() - t0
+    nms_one = apply_net_main(setup_arg_parser().parse_args(ranks(nms, 1)),
+                             batch_size=BATCH, device=device)
+    lines = [match_json("standard_nms, 2 ranks against 1", results_json(two["standard_nms"]),
+                        results_json(nms_one))]
+    cfg = setup_config(setup_arg_parser().parse_args(flagship + tail), random_seed=seed,
+                       is_testing=True)
+    params = load_params(cfg.OUTPUT_DIR)
+    merged, parts = results_json(two["flagship"]), []
+    for r in range(2):
+        loader = TestLoader(get_dataset("bdd_val"), batch_size=BATCH,
+                            min_size=cfg.INPUT.MIN_SIZE_TEST, max_size=cfg.INPUT.MAX_SIZE_TEST,
+                            divisibility=cfg.INPUT.SIZE_DIVISIBILITY, process_index=r,
+                            process_count=2)
+        ids = {rec["image_id"] for rec in loader.records}
+        summary = run_inference(cfg, "bdd_val", f"shard_{r}", batch_size=BATCH, params=params,
+                                run_metrics=False, run_map=False, verbose=False,
+                                loader=loader, device=device)
+        loader.close()
+        part = [x for x in merged if x["image_id"] in ids]
+        lines.append(match_json(f"flagship rank {r}'s part against its shard alone", part,
+                                results_json(summary)))
+        parts.append(part)
+    if merged != parts[0] + parts[1]:
+        raise AssertionError("the merged json is not rank 0's part, then rank 1's")
+    launches["apply_net_2_ranks"] = two["flagship"]["launches"]
+    log(f"parallel apply_net on 2 ranks (gloo, {shared}): " + "; ".join(lines)
+        + f"; {two_s:.2f} s for both launches, gather {two['flagship']['gather_seconds']:.4f} s "
+        f"(flagship, {two['flagship']['processes']} processes), "
+        f"{two['flagship']['num_images']} images in all, dropout launches per rank "
+        f"{two['flagship']['launches']} ({card})")
+
+    # 3. --num-devices: more cards than the machine has is refused.
+    if on_card:
+        try:
+            apply_net_main(setup_arg_parser().parse_args(
+                flagship + ["--num-devices", str(torch.cuda.device_count() + 1)]))
+        except ValueError as e:
+            if "torch.cuda.device_count()" not in str(e):
+                raise
+            log(f"parallel --num-devices {torch.cuda.device_count() + 1}: refused: {e}")
+        else:
+            raise AssertionError("--num-devices above the card count ran")
+
+    # 4. Data-parallel training, two ranks sharing the card (gloo over CUDA
+    # tensors). train_net's main, as the CLI runs it, on phase 10's JPEGs
+    # warm-started from its .pkl, against train_net's main on one process;
+    # the launches of the two ranks are the main path's.
+    per_step = 2 * 2 * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES)
+    expected = (per_step, 1) if on_card else (0, 0)  # the CPU's plain versions: none
+    train_opts = ["MODEL.PROBABILISTIC_MODELING.CLS_VAR_LOSS.IMPL", "pallas",
+                  "MODEL.WEIGHTS", os.path.join(work, "R-50.pkl"),
+                  "PARALLEL.COMPUTE_DTYPE", "float32", "SOLVER.IMS_PER_BATCH", TRAIN_BATCH,
+                  "SOLVER.MAX_ITER", PARALLEL_STEPS, "SOLVER.CHECKPOINT_PERIOD", PARALLEL_STEPS,
+                  "TEST.EVAL_PERIOD", PARALLEL_STEPS, "MODEL.RETINANET.SCORE_THRESH_TEST", 0.0,
+                  "INPUT.MIN_SIZE_TRAIN", f"({EVAL_SIZE[0]},)", *tail]
+    train_argv = lambda n: ["--config-file", TRAIN_CFG, "--dataset-dir",
+                            os.path.join(work, "bdd_jpeg"), "--random-seed", str(seed),
+                            "--num-devices", str(n), *map(str, train_opts)]
+    dirs = {n: os.path.join(work, f"parallel_train_net_{n}")
+            for n in (1, 2, "halves", "again")}
+    t0 = time.perf_counter()
+    two_net = launch(parallel_train_net, 2, (train_argv(2), dirs[2], device), device=shared,
+                     backend="gloo", timeout_s=PARALLEL_TIMEOUT_S)
+    two_net_s = time.perf_counter() - t0
+    os.environ["POD_COMPARE_DATA_DIR"] = dirs[1]
+    kdropout.LAUNCHES = kfocal.LAUNCHES = 0
+    t0 = time.perf_counter()
+    one_net = train_net.main(setup_arg_parser().parse_args(train_argv(1)), device=device)
+    sync(device or "cuda")
+    one_net_s = time.perf_counter() - t0
+    one_launches = (kdropout.LAUNCHES, kfocal.LAUNCHES)
+    # Twice more on one process, each step's backward over the ranks' rows
+    # in turn: the two ranks' arithmetic, and that arithmetic run again.
+    for name in ("halves", "again"):
+        os.environ["POD_COMPARE_DATA_DIR"] = dirs[name]
+        with steps_in_parts(2):
+            del one_net
+            one_net = train_net.main(setup_arg_parser().parse_args(train_argv(1)),
+                                     device=device)
+    os.environ["POD_COMPARE_DATA_DIR"] = data
+    whole_run = tuple(n * PARALLEL_STEPS for n in expected)
+    if any(tuple(n) != whole_run for n in two_net["launches"]) or one_launches != whole_run:
+        raise AssertionError(f"train_net launched {two_net['launches']} per rank, "
+                             f"{one_launches} on one process; expected {whole_run}")
+    if two_net["step"] != PARALLEL_STEPS or tuple(two_net["canvas"]) != tuple(one_net.canvas):
+        raise AssertionError(f"train_net on 2 ranks: step {two_net['step']}, canvas "
+                             f"{two_net['canvas']} against {one_net.canvas}")
+    outs = {n: train_net_output(d, seed) for n, d in dirs.items()}
+    rows = {n: metrics_rows(o) for n, o in outs.items()}
+    keys = lambda rs: [(r["iteration"], sorted(k for k in r if k != "time")) for r in rs]
+    steps = {n: Checkpointer(o).steps() for n, o in outs.items()}
+    if any(keys(rs) != keys(rows[1]) for rs in rows.values()) or any(
+            st != [PARALLEL_STEPS] for st in steps.values()):
+        raise AssertionError(f"train_net wrote rows {keys(rows[2])} and checkpoints {steps[2]} "
+                             f"on 2 ranks, {keys(rows[1])} and {steps[1]} on one process")
+    loss_keys = ("loss_cls", "loss_box_reg", "total_loss", "num_pos_anchors", "lr")
+    logged = {n: next(r for r in rs if "total_loss" in r) for n, rs in rows.items()}
+    for key in loss_keys:
+        a = logged[2][key]
+        for ref in (1, "halves"):
+            b = logged[ref][key]
+            if not math.isfinite(a) or abs(a - b) > 1e-5 * max(abs(b), 1e-6):
+                raise AssertionError(f"train_net step {PARALLEL_STEPS}: {key} {a} on 2 ranks, "
+                                     f"{b} on one process ({ref})")
+    # The weights after three steps are printed, not held: a zero-initialised
+    # bias's gradient is a sum whose terms cancel (in float32 it rounds
+    # farther from float64's than the sum itself, tools/torch_ddp_precision
+    # .py), so two summation orders, or one order run again, part by up to
+    # 1e-3 of that bias's small scale. Each step's weights and gradients are
+    # held below, from one state.
+    final = {n: Checkpointer(o).restore(PARALLEL_STEPS)["model"] for n, o in outs.items()}
+    net_weight = {(a, b): max(scaled_errors(final[a], {
+        k: v for k, v in final[b].items() if v.is_floating_point()}).items(),
+        key=lambda kv: kv[1]) for a, b in ((2, "halves"), (2, 1), ("again", "halves"))}
+    last = {n: rs[-1] for n, rs in rows.items()}  # the evaluation after the last step
+    detections = [last[n]["eval/num_detections"] for n in (2, "halves")]
+    evals = [results_json({"inference_output_dir": os.path.join(
+        outs[n], "inference", "bdd_val", f"eval_iter_{PARALLEL_STEPS}")}) for n in (2, "halves")]
+    if detections[0] != len(evals[0]) or detections[1] != len(evals[1]):
+        raise AssertionError(f"eval/num_detections {detections}, jsons of {len(evals[0])} and "
+                             f"{len(evals[1])}")
+    eval_line = (match_json("Trainer.test on 2 ranks against the halves", *evals)
+                 if evals[1] else f"Trainer.test: {len(evals[0])} and 0 detections")
+    if not evals[1] and evals[0]:
+        raise AssertionError(eval_line)
+    launches["train_net_2_ranks"] = two_net["launches"]
+    log(f"parallel train_net: main on 2 ranks (gloo, {shared}) {two_net_s:.2f} s with the "
+        f"processes' start, on one process {one_net_s:.2f} s, {PARALLEL_STEPS} steps at batch "
+        f"{TRAIN_BATCH} (float32) on {one_net.canvas[0]}x{one_net.canvas[1]} from JPEGs; launches "
+        f"per rank {two_net['launches']}, one process {one_launches}; step {PARALLEL_STEPS} "
+        + ", ".join(f"{k} {logged[2][k]:.6g}/{logged[1][k]:.6g}" for k in loss_keys[:4])
+        + "; worst weight of scale: " + ", ".join(
+            f"{a} against {b} {name} {e:.2e}" for (a, b), (name, e) in net_weight.items())
+        + f"; {eval_line}; "
+        f"mAP {last[2]['eval/mAP']:.4f}/{last['halves']['eval/mAP']:.4f}/"
+        f"{last[1]['eval/mAP']:.4f} (2 ranks/halves/one process) ({card})")
+    del one_net
+    for d in dirs.values():
+        shutil.rmtree(d)
+
+    # Each step from one state: the ranks' step against the one-process step
+    # over the whole batch and against its halves backward in turn.
+    t0 = time.perf_counter()
+    records = launch(parallel_train, 2,
+                     (seed, PARALLEL_STEPS, canvas, os.path.join(work, "parallel_train"), None),
+                     device=shared, backend="gloo", timeout_s=PARALLEL_TIMEOUT_S)
+    train_s = time.perf_counter() - t0
+    for k, rec in enumerate(records):
+        if len(set(rec["digests"])) != 1:
+            raise AssertionError(f"step {k}: the ranks' weights differ")
+        if any(tuple(n) != expected for n in rec["launches"]):
+            raise AssertionError(f"step {k}: launches per rank {rec['launches']}, expected "
+                                 f"{expected}")
+        if not rec["finite"]:
+            raise AssertionError(f"step {k}: a non-finite gradient")
+        flips = "; ".join(f"{kind} gate flips {n} of {total}"
+                          for kind, (n, total) in rec["gate_flips"].items())
+        log(f"parallel train step {k}: ms per rank {[round(m, 2) for m in rec['ms']]}, one "
+            f"process {rec['one_process_ms']:.2f} ms (batch {TRAIN_BATCH}, float32, "
+            f"{canvas[0]}x{canvas[1]}); losses " + ", ".join(
+                f"{key} {rec['losses'][key]:.6g}/{rec['one_process_losses'][key]:.6g}"
+                for key in ("loss_cls", "loss_box_reg", "num_pos_anchors"))
+            + f"; worst gradient {rec['grad_error'][0]} {rec['grad_error'][1]:.2e}, worst "
+            f"weight {rec['weight_error'][0]} {rec['weight_error'][1]:.2e} of scale; against "
+            f"the halves in one process: the ranks' worst gradient {rec['split_error'][0]} "
+            f"{rec['split_error'][1]:.2e}, the one-process step's "
+            f"{rec['split_against_one_process'][0]} {rec['split_against_one_process'][1]:.2e};"
+            f" {flips}; launches per rank {rec['launches']} ({card})")
+        if any(n > MAX_GATE_FLIPS * total for n, total in rec["gate_flips"].values()):
+            raise AssertionError(f"step {k}: {flips}")
+        for key in ("loss_cls", "loss_box_reg", "total_loss", "num_pos_anchors"):
+            a, b = rec["losses"][key], rec["one_process_losses"][key]
+            if abs(a - b) > 1e-5 * max(abs(b), 1e-6):
+                raise AssertionError(f"step {k}: {key} {a} against one process's {b}")
+        # The weights are held to 1e-5 of their scale. A gradient is held to
+        # MAX_SPLIT_GRAD_ERROR against the same sum taken as the processes
+        # take it (each half's gradient, then their sum), and to
+        # MAX_DDP_GRAD_ERROR, about 3x the largest reading, against the
+        # one-process step, which sums over the four images in one call: the
+        # log-variance head's gradient (the focal kernel's, whose terms
+        # cancel) came 1.85e-5 and 2.06e-5 of its scale apart with no gate
+        # differing, the same sum as the halves', and float64 puts one and
+        # two processes 3e-15 apart (tools/torch_ddp_precision.py).
+        if (rec["weight_error"][1] > 1e-5 or rec["grad_error"][1] > MAX_DDP_GRAD_ERROR
+                or rec["split_error"][1] > MAX_SPLIT_GRAD_ERROR):
+            raise AssertionError(f"step {k}: weight {rec['weight_error']}, gradient "
+                                 f"{rec['grad_error']}, against the halves "
+                                 f"{rec['split_error']}")
+    log(f"parallel train: {PARALLEL_STEPS} steps on 2 ranks in {train_s:.2f} s ({card})")
+
+    # 5. Five ensemble members placed on the card, against the unplaced predictor.
+    ens_cfg = mode_config("Inference/ensembles_pre_nms.yaml")
+    images = torch.from_numpy(canvases(seed + 5, canvas, BATCH))
+    sizes = np.array([canvas] * BATCH, np.float32)
+    placement = create_ensemble_placement(len(members), None if on_card else [device])
+    outs = []
+    for where in (placement, None):
+        predictor = build_predictor(ens_cfg, canvas, device=device or "cuda",
+                                    state_dicts=members, placement=where)
+        outs.append(predictor(images, sizes, sizes,
+                              generator=torch.Generator().manual_seed(seed)))
+        del predictor
+    if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("the placed ensemble differs from the unplaced one")
+    log(f"parallel ensembles: {len(members)} members placed on {sorted(set(map(str, placement)))}"
+        f", detections bit-identical to the unplaced predictor's ({int(outs[0].valid.sum())} "
+        f"detections) ({card})")
+
+    # 6. resize_and_pad on the card against the CPU, BDD at the test size.
+    raw = torch.from_numpy(canvases(seed + 6, EVAL_SIZE, BATCH).astype(np.float32))
+    args = (EVAL_SIZE, 800, 1333, EVAL_CANVAS)
+    got, size = resize_and_pad(raw.to(device or "cuda"), *args)
+    want, _ = resize_and_pad(raw, *args)
+    err = float((got.cpu() - want).abs().max())
+    if size != (750, 1333) or err > 1e-3:
+        raise AssertionError(f"resize_and_pad on the card: {size}, max abs {err} against the CPU")
+    resize_ms = event_ms(lambda: resize_and_pad(raw.to(device or "cuda"), *args), 10) \
+        if on_card else float("nan")
+    log(f"parallel resize_and_pad: {tuple(raw.shape)} -> {tuple(got.shape)}, max abs {err:.2e} "
+        f"against the CPU (0-255 scale), {resize_ms:.4f} ms with the copy to the card ({card})")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2480,6 +3130,10 @@ def main() -> int:
         t0 = time.perf_counter()
         rest = run_rest(args.seed, card, work)
         phase("rest", t0)
+
+        t0 = time.perf_counter()
+        parallel = run_parallel(args.seed, card, work, members)
+        phase("parallel", t0)
     log(f"[total] {time.perf_counter() - t_all:.2f} s ({card})")
 
     kernels = [{
@@ -2521,6 +3175,11 @@ def main() -> int:
         "int8_plain_ms": k1["f32"]["plain_ms"],
         "int8_bound_ms": k1["f32"]["bound_ms"],
         "int8_torch_dropout_ms": k1["f32"]["torch_dropout_ms"],
+        "parallel_launches": {
+            "apply_net_1_rank": parallel["apply_net_1_rank"],
+            "apply_net_2_ranks": parallel["apply_net_2_ranks"],
+            "train_net_2_ranks": [n[0] for n in parallel["train_net_2_ranks"]],
+        },
     }, {
         "name": "stochastic_focal_elem",
         "route": "cuda",
@@ -2547,6 +3206,9 @@ def main() -> int:
         "train_net_launches": train_net_launches["focal"],
         "energy_launches": rest["focal"]["energy"],
         "remat_train_step_launches": rest["focal"]["remat_train_step"],
+        "parallel_train_net_launches": [n[1] for n in parallel["train_net_2_ranks"]],
+        "index_base_bit_identical": k2["index_base_bit_identical"],
+        "parent_bit_identical": k2["parent_bit_identical"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

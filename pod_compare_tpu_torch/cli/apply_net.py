@@ -21,9 +21,13 @@ largest batch of (32, 24, 16, 8, 4, 2, 1) whose measured peak memory fits
 the card (``utils/memory_guard.py``); ``run_pdq`` adds PDQ
 (``evaluation/pdq.py``) to the summary.
 
-Every inference mode of ``configs/Inference/`` runs. Not ported yet, and
-refused with the ROADMAP item that ports it: more than one process or
-device (B4).
+Every inference mode of ``configs/Inference/`` runs. Several processes,
+one per card, each infer a strided shard of the test set
+(``TestLoader(process_index, process_count)``) and gather their json in
+rank order; rank 0 alone writes it and runs the metric suite and PDQ, as
+the JAX CLI's main process does. ``main`` joins the process group a
+launcher (``torchrun``) set up, or spawns ``--num-devices`` processes
+itself (``parallel.launch``; -1, the default, is every local card).
 """
 
 import json
@@ -57,6 +61,17 @@ from pod_compare_tpu_torch.evaluation.probabilistic_metrics import (
 from pod_compare_tpu_torch.inference.core import Detections
 from pod_compare_tpu_torch.inference.postprocess import detections_to_json
 from pod_compare_tpu_torch.inference.predictor import build_predictor
+from pod_compare_tpu_torch.parallel import (
+    check_process_count,
+    gather_process_results,
+    is_main_process,
+    launch,
+    local_device,
+    maybe_initialize_distributed,
+    process_count,
+    process_index,
+    resolve_num_devices,
+)
 from pod_compare_tpu_torch.train.checkpoint import load_ensemble_params, load_params
 from pod_compare_tpu_torch.utils.device import resolve_device
 from pod_compare_tpu_torch.utils.logging import setup_logger
@@ -76,16 +91,11 @@ def load_predictor_params(cfg):
     return load_params(cfg.OUTPUT_DIR), None
 
 
-def _refuse_unported(cfg, resume, mesh) -> None:
+def _refuse_unported(resume) -> None:
     if not resume:
         raise ValueError("apply_net: resume=False asks for a fresh run, but the weights are "
                          "always `params`/`params_list` or the latest checkpoints under "
                          "cfg.OUTPUT_DIR")
-    if (mesh is not None or cfg.PARALLEL.NUM_DEVICES not in (-1, 1)
-            or (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1)):
-        raise NotImplementedError("apply_net: more than one process or device (ROADMAP §1 B4) "
-                                  "is not ported yet")
 
 
 def run_inference(
@@ -99,7 +109,6 @@ def run_inference(
     params=None,
     params_list=None,
     verbose: bool = True,
-    mesh=None,
     profile: bool = False,
     min_allowed_score=None,
     loader=None,
@@ -121,10 +130,19 @@ def run_inference(
     checkpoints. `batch_size` 'auto' (or 0 or None) measures the largest
     batch that fits the card (``utils.memory_guard.auto_batch_size``; a
     ValueError on the CPU) and sets the loader's batch to it; the summary
-    then holds it as ``auto_batch``."""
-    _refuse_unported(cfg, resume, mesh)
+    then holds it as ``auto_batch``.
+
+    In a process group each process infers its shard of the test set on
+    its own device (``parallel.local_device``) and probes its own `auto`
+    batch; the gathers are collective, and a process other than rank 0
+    returns ``{num_images, images_per_second, inference_output_dir,
+    is_main_process: False}`` after them. ``num_images`` counts every
+    process's images, ``images_per_second`` this process's over its own
+    time; rank 0's summary adds ``processes`` and ``gather_seconds``."""
+    _refuse_unported(resume)
+    check_process_count(cfg.PARALLEL.NUM_DEVICES)
     auto_batch = batch_size in ("auto", 0, None)
-    device = resolve_device(device)
+    device = resolve_device(local_device(device))
     if auto_batch and device.type != "cuda":
         raise ValueError(f"batch_size='auto' measures peak memory on CUDA, not on {device}")
     logger = setup_logger(name="pod_compare_tpu_torch")
@@ -141,6 +159,8 @@ def run_inference(
             divisibility=cfg.INPUT.SIZE_DIVISIBILITY,
             num_workers=cfg.DATALOADER.NUM_WORKERS,
             worker_backend=cfg.DATALOADER.WORKER_BACKEND,
+            process_index=process_index(),
+            process_count=process_count(),
         )
     if predictor is None:
         if params is None and params_list is None:
@@ -155,7 +175,8 @@ def run_inference(
     train_dataset = cfg.DATASETS.TRAIN[0]
     cat_mapping = model_to_dataset_id_map(train_dataset, test_dataset)
 
-    # One generator draw per batch, as the JAX CLI splits its key per batch.
+    # One generator draw per batch, as the JAX CLI splits its key per batch:
+    # every process draws from cfg.SEED, so its k-th batch takes the k-th seed.
     seeds = torch.Generator().manual_seed(max(int(cfg.SEED), 0))
     results = []
     num_images = 0
@@ -198,9 +219,25 @@ def run_inference(
         if own_loader:
             loader.close()
     elapsed = time.time() - start
+    # This process's rate: its images over its own time (a gathered count
+    # over local time would overstate it by about the process count).
     images_per_second = num_images / max(elapsed, 1e-9)
     logger.info(f"Inference on {num_images} images in {elapsed:.1f}s "
                 f"({images_per_second:.2f} img/s, {device})")
+
+    gather_seconds = None
+    if process_count() > 1:
+        start = time.time()
+        results = gather_process_results(results)
+        num_images = sum(gather_process_results([num_images]))
+        gather_seconds = time.time() - start
+        if not is_main_process():
+            return {
+                "num_images": num_images,
+                "images_per_second": images_per_second,
+                "inference_output_dir": output_dir,
+                "is_main_process": False,
+            }
 
     with open(os.path.join(output_dir, "coco_instances_results.json"), "w") as f:
         json.dump(results, f)
@@ -213,6 +250,9 @@ def run_inference(
     }
     if auto_info is not None:
         summary["auto_batch"] = dict(auto_info, batch=loader.batch_size)
+    if gather_seconds is not None:
+        summary["processes"] = process_count()
+        summary["gather_seconds"] = gather_seconds
     start = time.time()
     if run_map:
         stats, threshold = evaluate_average_precision(
@@ -253,6 +293,24 @@ def run_inference(
 
 
 def main(args, batch_size: int = 8, profile: bool = False, device=None):
+    """Run ``run_inference`` from the command line's arguments and return
+    rank 0's summary. Under a launcher that set the process group's
+    variables (``torchrun``) this process joins it; otherwise
+    ``--num-devices`` N > 1 (-1: every local card) spawns N processes, one
+    per card, or N on the CPU with ``device='cpu'``."""
+    if maybe_initialize_distributed(device) or process_count() > 1:
+        return _main(args, batch_size, profile, device)
+    device = resolve_device(device)
+    count = resolve_num_devices(args.num_devices, device)
+    if count > 1:
+        # Rank r on cuda:r, unless the caller named the CPU or one card.
+        per_rank = None if device.type == "cuda" and device.index is None else device
+        return launch(_main, count, (args, batch_size, profile, per_rank), device=per_rank)
+    return _main(args, batch_size, profile, device)
+
+
+def _main(args, batch_size, profile, device):
+    device = local_device(device)
     cfg = setup_config(args, random_seed=args.random_seed, is_testing=True)
     inference_name = os.path.splitext(os.path.basename(args.inference_config))[0]
     test_dataset = args.test_dataset or cfg.DATASETS.TEST[0]
@@ -265,7 +323,7 @@ def main(args, batch_size: int = 8, profile: bool = False, device=None):
     src_cfg = args.inference_config
     if not os.path.isfile(src_cfg):
         src_cfg = os.path.join(configs_dir(), args.inference_config)
-    if os.path.isfile(src_cfg):
+    if is_main_process() and os.path.isfile(src_cfg):
         copyfile(src_cfg, os.path.join(summary["inference_output_dir"], os.path.basename(src_cfg)))
     return summary
 

@@ -19,6 +19,7 @@ import torch
 
 from pod_compare_tpu_torch.config.defaults import get_cfg
 from pod_compare_tpu_torch.config.node import ConfigNode
+from pod_compare_tpu_torch.parallel.mesh import process_index
 from pod_compare_tpu_torch.utils.logging import setup_logger
 
 
@@ -68,7 +69,8 @@ def setup_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--eval-only", action="store_true")
     parser.add_argument(
-        "--num-devices", type=int, default=-1, help="devices on the data-parallel axis"
+        "--num-devices", type=int, default=-1,
+        help="processes, one per card (-1: every local card); parallel.launch spawns them",
     )
     parser.add_argument("--dataset-dir", type=str, default="")
     parser.add_argument("--random-seed", type=int, default=0)
@@ -90,11 +92,6 @@ def setup_config(args, random_seed=None, is_testing=False) -> ConfigNode:
     """Build the frozen experiment config, make its output directory, seed
     the host generators and register the datasets under --dataset-dir."""
     num_devices = getattr(args, "num_devices", -1)
-    if num_devices not in (-1, 1):
-        raise NotImplementedError(
-            f"--num-devices {num_devices}: more than one device is not ported yet "
-            "(ROADMAP §1, B4)"
-        )
     config_file = _resolve(args.config_file)
     cfg = merge_configs(config_file, getattr(args, "inference_config", ""),
                         getattr(args, "opts", None))
@@ -118,7 +115,7 @@ def setup_config(args, random_seed=None, is_testing=False) -> ConfigNode:
         cfg.PARALLEL.NUM_DEVICES = num_devices
     cfg.freeze()
 
-    setup_logger(output=cfg.OUTPUT_DIR)
+    setup_logger(output=cfg.OUTPUT_DIR, rank=process_index())
 
     # Host generators; the device's randomness comes from torch.Generators
     # seeded from cfg.SEED.

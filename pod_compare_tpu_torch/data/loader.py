@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from pod_compare_tpu_torch.data.datasets import DatasetInfo
+from pod_compare_tpu_torch.parallel.mesh import BatchShard
 
 
 def resize_shortest_edge(h: int, w: int, min_size: int, max_size: int) -> Tuple[int, int]:
@@ -277,7 +278,13 @@ class TrainLoader(_PooledLoader):
     permutation per epoch and one uniform vector per batch; item i of a
     batch is prepared with ``RandomState(int(f_i * 2**31) & 0x7FFFFFFF)``,
     which draws its MIN_SIZE_TRAIN choice (when there are several), then
-    its flip."""
+    its flip.
+
+    With `process_count` W > 1 the stream stays that of the global batch of
+    `batch_size` images, drawn alike in every process, and process r
+    prepares and yields only its rows [r·B/W, (r+1)·B/W) of each batch
+    (``parallel.BatchShard``): the processes' batches, in rank order, are the
+    one-process batch row for row. A batch that W does not divide raises."""
 
     def __init__(
         self,
@@ -293,11 +300,14 @@ class TrainLoader(_PooledLoader):
         num_workers: int = 4,
         flip: bool = True,
         worker_backend: str = "thread",
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.records = [r for r in dataset.load() if r["annotations"]]
         if not self.records:
             raise ValueError(f"Dataset {dataset.name} has no annotated images")
         self.batch_size = batch_size
+        self.shard = BatchShard.of(batch_size, process_index, process_count)
         # `min_size` is an int or the MIN_SIZE_TRAIN tuple, one choice per
         # image; the canvas covers the largest.
         choices = (tuple(int(m) for m in min_size) if isinstance(min_size, (tuple, list))
@@ -331,9 +341,10 @@ class TrainLoader(_PooledLoader):
                     if skip > 0:
                         skip -= 1
                         continue
+                    rows = slice(self.shard.first, self.shard.first + self.shard.size)
                     items = self._pool.map(_prepare_star, [
                         (self.records[i], self.lc, self.canvas, int(f * 2 ** 31) & 0x7FFFFFFF)
-                        for i, f in zip(order[start:start + self.batch_size], draws)
+                        for i, f in zip(order[start:start + self.batch_size][rows], draws[rows])
                     ])
                     yield _collate(items)
 
@@ -342,8 +353,13 @@ class TrainLoader(_PooledLoader):
 
 class TestLoader(_PooledLoader):
     """Sequential loader; the final batch is padded by repeating the last
-    image, flagged in `batch_valid`. (The JAX loader's per-process shard
-    comes with multi-process evaluation, ROADMAP §1 B4.)"""
+    image, flagged in `batch_valid`.
+
+    With `process_count` > 1, process `process_index` takes the strided
+    shard ``records[process_index::process_count]`` (the JAX loader's
+    shard), on the canvas of the whole dataset, so that every process runs
+    the same shapes; ``parallel.gather_process_results`` gathers their
+    json."""
 
     __test__ = False  # "Test" = test-set loader, not a pytest class
 
@@ -357,6 +373,8 @@ class TestLoader(_PooledLoader):
         prefetch: int = 2,
         num_workers: int = 4,
         worker_backend: str = "thread",
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.records = dataset.load()
         self.canvas = static_canvas(
@@ -364,6 +382,7 @@ class TestLoader(_PooledLoader):
             min_size if isinstance(min_size, int) else max(min_size),
             max_size, divisibility,
         )
+        self.records = self.records[process_index::process_count]
         self.batch_size = batch_size
         self.lc = LoaderConfig(
             min_size=min_size, max_size=max_size, divisibility=divisibility,

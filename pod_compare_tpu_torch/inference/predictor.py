@@ -68,6 +68,12 @@ class ProbabilisticPredictor:
         device: torch device; None means CUDA.
         state_dicts: for the `ensembles` mode, one state dict per member,
             in the order of ENSEMBLES.RANDOM_SEED_NUMS (`state_dict` unused).
+        placement: for the `ensembles` mode, the device of each member
+            (``parallel.create_ensemble_placement``; default: every member
+            on `device`). A member's model lives on its device, the images
+            are copied to it, and its outputs come back to `device` before
+            the cross-member merge. A placement of another length than the
+            members raises.
 
     On CUDA the constructor sets ``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` to False, process-wide, so that
@@ -79,7 +85,7 @@ class ProbabilisticPredictor:
     """
 
     def __init__(self, cfg, image_size: Sequence[int], state_dict=None, device=None,
-                 state_dicts=None):
+                 state_dicts=None, placement=None):
         pi = cfg.PROBABILISTIC_INFERENCE
         self.mode = pi.INFERENCE_MODE
         if self.mode not in MODES:
@@ -93,10 +99,17 @@ class ProbabilisticPredictor:
         if self.mode == "ensembles":
             if not state_dicts:
                 raise ValueError("ensembles mode needs one state dict per member (state_dicts)")
-            self.models = [self._load(sd) for sd in state_dicts]
+            if placement is not None and len(placement) != len(state_dicts):
+                raise ValueError(f"a placement of {len(placement)} devices for "
+                                 f"{len(state_dicts)} ensemble members")
+            self.member_devices = [torch.device(d) for d in placement or
+                                   [self.device] * len(state_dicts)]
+            self.models = [self._load(sd, d) for sd, d in zip(state_dicts, self.member_devices)]
         else:
             if state_dict is None:
                 raise ValueError(f"{self.mode} needs the model's state_dict")
+            if placement is not None:
+                raise ValueError(f"a member placement is for the ensembles mode, not {self.mode}")
             self.models = [self._load(state_dict)]
         self.model = self.models[0]
 
@@ -143,15 +156,20 @@ class ProbabilisticPredictor:
         )
         self.sampled = pi.CLS_SAMPLING != "analytic" or pi.BOX_SAMPLING != "analytic"
 
-    def _load(self, state_dict):
+    def _load(self, state_dict, device=None):
         model = build_model(self.cfg, head_quant=self.cfg.PROBABILISTIC_INFERENCE.HEAD_QUANT)
         model.load_state_dict(state_dict)
-        return model.cast_convs().to(self.device).eval()
+        return model.cast_convs().to(device or self.device).eval()
 
     # ------------------------------------------------------------ stages
     def _runs(self, images, dropout_gen, tower_dropouts) -> List[dict]:
         if self.mode == "ensembles":
-            return [model(images) for model in self.models]
+            # Each member's forward is queued on its own card before any
+            # output is copied back, so members on several cards overlap.
+            runs = [model(images.to(d, non_blocking=True))
+                    for model, d in zip(self.models, self.member_devices)]
+            return [{k: None if v is None else v.to(self.device, non_blocking=True)
+                     for k, v in run.items()} for run in runs]
         model = self.model
         feats = model.backbone_features(images)
         prefix = model.head.prefix(feats)
@@ -339,8 +357,9 @@ class ProbabilisticPredictor:
 
 
 def build_predictor(cfg, image_size, state_dict=None, device=None,
-                    state_dicts=None) -> ProbabilisticPredictor:
+                    state_dicts=None, placement=None) -> ProbabilisticPredictor:
     """Dispatch on the meta-architecture, as the JAX `build_predictor` does."""
     if cfg.MODEL.META_ARCHITECTURE in ("ProbabilisticRetinaNet", "RetinaNet"):
-        return ProbabilisticPredictor(cfg, image_size, state_dict, device, state_dicts)
+        return ProbabilisticPredictor(cfg, image_size, state_dict, device, state_dicts,
+                                      placement)
     raise ValueError(f"Invalid meta-architecture {cfg.MODEL.META_ARCHITECTURE}.")

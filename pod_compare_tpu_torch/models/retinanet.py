@@ -42,6 +42,7 @@ from pod_compare_tpu_torch.models.resnet import ResNet
 from pod_compare_tpu_torch.ops.anchors import AnchorGenerator
 from pod_compare_tpu_torch.ops.kernels.dropout import dropout, dropout_autograd
 from pod_compare_tpu_torch.ops.quant import quantized_conv3x3
+from pod_compare_tpu_torch.parallel.mesh import BatchShard
 
 TOWERS = ("cls_subnet", "bbox_subnet")
 HEAD_QUANT_MODES = ("none", "int8")
@@ -94,12 +95,27 @@ class InjectedMasks(TowerDropout):
         return F.relu(x) * nchw
 
 
-def level_offsets(features: Sequence[torch.Tensor], batch_shared: bool) -> List[int]:
-    """Stream offset of each level in one mask draw over all levels."""
+def level_offsets(features: Sequence[torch.Tensor], batch_shared: bool,
+                  shard=None) -> List[int]:
+    """Stream offset of each level in one mask draw over all levels.
+
+    With per-sample masks and a `shard` (``parallel.BatchShard``: these
+    features are rows [first, first + size) of a data-parallel step's global
+    batch), each level's offset is the global batch's, plus the first row's
+    place in it, so a process draws the masks one process draws for its
+    rows. Batch-shared masks are the same in every process."""
     offsets, total = [], 0
     for f in features:
-        offsets.append(total)
-        total += f[0].numel() if batch_shared else f.numel()
+        per_image = f[0].numel()
+        if batch_shared:
+            offsets.append(total)
+            total += per_image
+            continue
+        rows = shard if shard is not None else BatchShard(0, f.shape[0], f.shape[0])
+        if f.shape[0] != rows.size:
+            raise ValueError(f"features of {f.shape[0]} images for a shard of {rows.size}")
+        offsets.append(total + rows.first * per_image)
+        total += rows.total * per_image
     return offsets
 
 
@@ -291,15 +307,18 @@ class ProbabilisticRetinaNet(nn.Module):
         """Raw anchorwise outputs of one head pass."""
         return self.head(self.backbone_features(images), tower_dropout)
 
-    def forward_train(self, images: torch.Tensor, seeds, batch_shared: bool = False):
+    def forward_train(self, images: torch.Tensor, seeds, batch_shared: bool = False,
+                      shard=None):
         """One training pass: dropout after every tower conv through the
         kernel, one mask draw per (tower, layer) from `seeds[tower][layer]`,
-        per sample unless `batch_shared`."""
+        per sample unless `batch_shared`; with a `shard`, the images are those
+        rows of a global batch and draw its masks (`level_offsets`)."""
         features = self.backbone_features(images)
         tower_dropout = None
         if self.dropout_rate > 0.0:
             tower_dropout = KernelDropout(
-                seeds, self.dropout_rate, level_offsets(features, batch_shared), batch_shared
+                seeds, self.dropout_rate, level_offsets(features, batch_shared, shard),
+                batch_shared,
             )
         return self.head(features, tower_dropout)
 

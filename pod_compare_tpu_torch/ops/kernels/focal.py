@@ -11,7 +11,10 @@ where the clamp is active). The normals ``z`` come from Box–Muller on
 (``_hash_bits``, lowbias32, keyed per 65536-element block as its interpret
 mode keys them), so the plain version matches the JAX kernel run in
 interpret mode to float32 rounding, and the CUDA kernel matches the plain
-version on the card.
+version on the card. Element ``i`` of the flat arrays draws at stream index
+``index_base + i``: 0 for a whole batch; a process of a data-parallel step
+passes the flat index of its first element in the global batch, and so
+draws what one process draws for those elements.
 
 ``focal`` sends a CPU tensor to the plain version and a CUDA tensor to the
 kernel; anything else raises. ``stochastic_focal_elem`` wraps it in an
@@ -51,10 +54,11 @@ def lowbias32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def stream_keys(n: int, seed: int, device="cpu") -> torch.Tensor:
-    """(n,) int64 hash keys of flat elements 0..n-1 under the int32 `seed`:
-    local + (seed + block)·0x85EBCA6B mod 2^32, block = i // 65536."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+def stream_keys(n: int, seed: int, device="cpu", index_base: int = 0) -> torch.Tensor:
+    """(n,) int64 hash keys of stream indices index_base .. index_base+n-1
+    under the int32 `seed`: local + (seed + block)·0x85EBCA6B mod 2^32,
+    block = i // 65536, local = i % 65536."""
+    i = torch.arange(index_base, index_base + n, dtype=torch.int64, device=device)
     block_seed = ((seed & _MASK32) + i // BLOCK) & _MASK32
     return (i % BLOCK + _mul32(block_seed, _SEED_STEP)) & _MASK32
 
@@ -85,13 +89,13 @@ def focal_terms(y: torch.Tensor, t: torch.Tensor, alpha: float, gamma: float):
 
 
 def focal_plain(x, s, t, seed: int, num_samples: int, alpha: float = 0.25,
-                gamma: float = 2.0):
+                gamma: float = 2.0, index_base: int = 0):
     """The kernel's function in PyTorch ops, on any device: (loss, gx, gs)
     shaped like x."""
-    _check(x, s, t, num_samples)
+    _check(x, s, t, num_samples, index_base)
     shape = x.shape
     x, s, t = (a.reshape(-1) for a in (x, s, t))
-    keys = stream_keys(x.numel(), seed, x.device)
+    keys = stream_keys(x.numel(), seed, x.device, index_base)
     sc = torch.clamp(s, -LOG_VAR_CLAMP, LOG_VAR_CLAMP)
     std = torch.exp(0.5 * sc)
     gate = ((s > -LOG_VAR_CLAMP) & (s < LOG_VAR_CLAMP)).to(torch.float32)
@@ -119,7 +123,7 @@ def focal_plain(x, s, t, seed: int, num_samples: int, alpha: float = 0.25,
 
 
 # ------------------------------------------------------------ kernel
-def _check(x, s, t, num_samples: int) -> None:
+def _check(x, s, t, num_samples: int, index_base: int = 0) -> None:
     """Raises on what the kernel does not take."""
     for name, a in (("logits", x), ("log-variances", s), ("targets", t)):
         if a.dtype != torch.float32:
@@ -127,8 +131,9 @@ def _check(x, s, t, num_samples: int) -> None:
         if a.shape != x.shape or a.device != x.device:
             raise ValueError(f"focal needs {name} of x's shape and device, got "
                              f"{tuple(a.shape)} on {a.device}")
-    if x.numel() == 0 or num_samples < 1:
-        raise ValueError(f"focal cannot take {x.numel()} elements and {num_samples} samples")
+    if x.numel() == 0 or num_samples < 1 or index_base < 0:
+        raise ValueError(f"focal cannot take {x.numel()} elements, {num_samples} samples and "
+                         f"index base {index_base}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,8 +142,8 @@ def _library():
 
     fn = _build.load("focal.cu").pod_focal_forward
     fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double,
-        ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        ctypes.c_double, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -151,19 +156,19 @@ def _int32(seed: int) -> int:
 
 
 def focal_cuda(x, s, t, seed: int, num_samples: int, alpha: float = 0.25,
-               gamma: float = 2.0):
+               gamma: float = 2.0, index_base: int = 0):
     """Launch csrc/focal.cu on x's device and PyTorch's current stream."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"focal_cuda needs CUDA tensors, got {x.device}")
-    _check(x, s, t, num_samples)
+    _check(x, s, t, num_samples, index_base)
     x, s, t = x.contiguous(), s.contiguous(), t.contiguous()
     loss, gx, gs = (torch.empty_like(x) for _ in range(3))
     fn = _library()
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(), s.data_ptr(), t.data_ptr(), loss.data_ptr(), gx.data_ptr(),
-            gs.data_ptr(), x.numel(), _int32(seed), num_samples, alpha, gamma,
+            gs.data_ptr(), x.numel(), index_base, _int32(seed), num_samples, alpha, gamma,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
@@ -172,31 +177,33 @@ def focal_cuda(x, s, t, seed: int, num_samples: int, alpha: float = 0.25,
     return loss, gx, gs
 
 
-def focal(x, s, t, seed: int, num_samples: int, alpha: float = 0.25, gamma: float = 2.0):
-    """(loss, gx, gs) of the stochastic focal loss under the int32 `seed`:
-    the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+def focal(x, s, t, seed: int, num_samples: int, alpha: float = 0.25, gamma: float = 2.0,
+          index_base: int = 0):
+    """(loss, gx, gs) of the stochastic focal loss under the int32 `seed`,
+    element i at stream index `index_base` + i: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
     if x.device.type == "cpu":
-        return focal_plain(x, s, t, _int32(seed), num_samples, alpha, gamma)
+        return focal_plain(x, s, t, _int32(seed), num_samples, alpha, gamma, index_base)
     if x.device.type == "cuda":
-        return focal_cuda(x, s, t, seed, num_samples, alpha, gamma)
+        return focal_cuda(x, s, t, seed, num_samples, alpha, gamma, index_base)
     raise ValueError(f"focal has no path for device {x.device}")
 
 
 class _StochasticFocal(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, s, t, seed, num_samples, alpha, gamma):
-        loss, gx, gs = focal(x, s, t, seed, num_samples, alpha, gamma)
+    def forward(ctx, x, s, t, seed, num_samples, alpha, gamma, index_base):
+        loss, gx, gs = focal(x, s, t, seed, num_samples, alpha, gamma, index_base)
         ctx.save_for_backward(gx, gs)
         return loss
 
     @staticmethod
     def backward(ctx, ct):
         gx, gs = ctx.saved_tensors
-        return ct * gx, ct * gs, None, None, None, None, None
+        return ct * gx, ct * gs, None, None, None, None, None, None
 
 
 def stochastic_focal_elem(x, s, t, seed: int, num_samples: int, alpha: float = 0.25,
-                          gamma: float = 2.0) -> torch.Tensor:
+                          gamma: float = 2.0, index_base: int = 0) -> torch.Tensor:
     """Per-element mean-over-samples attenuated focal loss, differentiable in
     `x` and `s` (the counterpart of ``stochastic_focal_elem_pallas``)."""
-    return _StochasticFocal.apply(x, s, t, seed, num_samples, alpha, gamma)
+    return _StochasticFocal.apply(x, s, t, seed, num_samples, alpha, gamma, index_base)

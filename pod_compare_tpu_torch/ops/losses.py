@@ -43,6 +43,19 @@ def _masked_sum(loss, mask):
     return torch.where(mask, loss, torch.zeros((), dtype=loss.dtype, device=loss.device)).sum()
 
 
+def _global_draw(shape, shard, generator, device, dtype, batch_axis: int):
+    """torch.randn of `shape` from `generator`, drawn for the global batch of
+    `shard` (None: the batch itself) and cut to the shard's rows along
+    `batch_axis`: every process of a data-parallel step draws the whole
+    global bank, so its rows are the one-process draw's."""
+    if shard is None or shard.whole:
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    full = list(shape)
+    full[batch_axis] = shard.total
+    bank = torch.randn(full, generator=generator, device=device, dtype=dtype)
+    return bank.narrow(batch_axis, shard.first, shard.size)
+
+
 def stochastic_focal_loss(
     logits,
     logit_log_vars,
@@ -54,6 +67,7 @@ def stochastic_focal_loss(
     gamma: float = 2.0,
     shared_batch: bool = False,
     impl: str = "threefry",
+    shard=None,
 ):
     """Loss-attenuation classification loss: the focal loss averaged over
     `num_samples` logits drawn from N(logit, exp(clip(log_var, ±10))),
@@ -65,11 +79,18 @@ def stochastic_focal_loss(
     normals with ``torch.randn`` from a generator seeded with `seed` on the
     logits' device; with `shared_batch` one (S, R, K) bank is broadcast over
     the batch.
+
+    `shard` (``parallel.BatchShard``): the logits are those rows of a global
+    batch, and the draws are the global batch's at those rows (the kernel's
+    stream from the shard's first element; the 'threefry' bank drawn for the
+    global batch and cut).
     """
     if impl == "pallas":
         targets_b = torch.broadcast_to(targets, logits.shape).float()
+        index_base = 0 if shard is None else shard.first * logits[0].numel()
         loss_elem = stochastic_focal_elem(
-            logits.float(), logit_log_vars.float(), targets_b, seed, num_samples, alpha, gamma
+            logits.float(), logit_log_vars.float(), targets_b, seed, num_samples, alpha, gamma,
+            index_base,
         )
         return _masked_sum(loss_elem, valid_mask)
     if impl != "threefry":
@@ -77,10 +98,10 @@ def stochastic_focal_loss(
     gen = torch.Generator(device=logits.device).manual_seed(seed)
     std = torch.sqrt(torch.exp(torch.clamp(logit_log_vars, -LOG_VAR_CLAMP, LOG_VAR_CLAMP)))
     if shared_batch and logits.dim() == 3:
-        shape = (num_samples, 1) + tuple(logits.shape[1:])
+        shape, shard = (num_samples, 1) + tuple(logits.shape[1:]), None
     else:
         shape = (num_samples,) + tuple(logits.shape)
-    noise = torch.randn(shape, generator=gen, device=logits.device, dtype=logits.dtype)
+    noise = _global_draw(shape, shard, gen, logits.device, logits.dtype, batch_axis=1)
     loss = sigmoid_focal_loss(logits[None] + noise * std[None], targets[None], alpha, gamma)
     return _masked_sum(loss, valid_mask[None]) / num_samples
 
@@ -151,7 +172,7 @@ def positive_slots(pos_mask: torch.Tensor, max_positives: int):
 def energy_score_box_loss(pred_deltas, gt_deltas, pred_cov_params, pos_mask,
                           num_samples: int = 1000, beta: float = 0.0,
                           log_var_clamp: float = 7.0, max_positives: int = 256,
-                          chunk: int = 50, generator=None):
+                          chunk: int = 50, generator=None, shard=None):
     """Energy-score box loss (masked sum),
 
         ES = mean_i d(s_i, gt) - 0.5 · mean_i d(s_i, s'_i),  s_i ~ N(mu, L L^T),
@@ -163,13 +184,14 @@ def energy_score_box_loss(pred_deltas, gt_deltas, pred_cov_params, pos_mask,
     `chunk` samples give the attraction term, its consecutive pairs the
     repulsion term, all n = chunks·chunk of each averaged. A 4-parameter head
     samples mu + z·exp(0.5·clip(s, ±log_var_clamp)), a 10-parameter head
-    mu + L z through its Cholesky factor."""
+    mu + L z through its Cholesky factor. With a `shard` the normals are the
+    global batch's at the shard's rows (``stochastic_focal_loss``)."""
     idx, weight = positive_slots(pos_mask, max_positives)
     take = lambda x: torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
     mu, gt, cov = take(pred_deltas), take(gt_deltas), take(pred_cov_params)
     n_chunks = -(-num_samples // chunk)
-    z = torch.randn((n_chunks, chunk + 1) + tuple(mu.shape), generator=generator,
-                    device=mu.device, dtype=mu.dtype)
+    z = _global_draw((n_chunks, chunk + 1) + tuple(mu.shape), shard, generator, mu.device,
+                     mu.dtype, batch_axis=2)
     if cov.shape[-1] == 4:
         samples = mu + z * torch.exp(0.5 * torch.clamp(cov, -log_var_clamp, log_var_clamp))
     else:

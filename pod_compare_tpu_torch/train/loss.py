@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from pod_compare_tpu_torch.ops import losses as L
 from pod_compare_tpu_torch.ops.matcher import label_anchors_batch
+from pod_compare_tpu_torch.parallel.mesh import BatchShard, all_reduce_sum
 
 
 @dataclass(frozen=True)
@@ -95,6 +96,7 @@ def compute_losses(
     step: int,
     lc: LossConfig,
     seed: int = 0,
+    shard: Optional[BatchShard] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """{loss_cls, loss_box_reg, num_pos_anchors} and the updated normalizer.
 
@@ -107,6 +109,14 @@ def compute_losses(
         seed: int32 seed of the stochastic classification loss; the energy
             score draws from a generator on the device seeded with
             `box_seed(seed)`.
+        shard: this process's rows of a data-parallel step's global batch
+            (None: the batch is the whole). The positive count that feeds
+            the normalizer is summed over the processes, as the JAX step's
+            global sum, and the draws are the global batch's at these rows;
+            each loss is then this process's share of the global loss
+            (summed over the processes, the one-process loss), and
+            ``num_pos_anchors`` the global count per global image. Collective
+            when the shard is part of a larger batch.
     """
     labels = label_anchors_batch(
         anchors, gt_boxes, gt_classes, gt_valid, lc.num_classes, lc.iou_thresholds
@@ -115,6 +125,8 @@ def compute_losses(
     valid_mask = anchor_classes >= 0
     pos_mask = valid_mask & (anchor_classes != lc.num_classes)
     num_pos = pos_mask.sum().to(torch.float32)
+    if shard is not None and not shard.whole:
+        num_pos = all_reduce_sum(num_pos)
 
     new_normalizer = L.ema_loss_normalizer(
         loss_normalizer, num_pos, lc.loss_normalizer_momentum
@@ -134,7 +146,7 @@ def compute_losses(
         loss_cls = L.stochastic_focal_loss(
             logits, outputs["box_cls_var"], targets, valid_mask, lc.cls_var_num_samples, seed,
             lc.focal_alpha, lc.focal_gamma, shared_batch=lc.cls_var_shared_batch,
-            impl=lc.cls_var_impl,
+            impl=lc.cls_var_impl, shard=shard,
         ) / norm
     elif lc.cls_var_loss == "none":
         loss_cls = L.masked_sum_focal_loss(
@@ -164,7 +176,7 @@ def compute_losses(
             generator = torch.Generator(device=pred_deltas.device).manual_seed(box_seed(seed))
             prob = L.energy_score_box_loss(
                 pred_deltas, gt_deltas, cov, pos_mask, lc.bbox_cov_num_samples,
-                lc.smooth_l1_beta, generator=generator,
+                lc.smooth_l1_beta, generator=generator, shard=shard,
             )
         elif lc.bbox_cov_loss == "second_moment_matching":
             prob = L.second_moment_matching_box_loss(
@@ -184,6 +196,6 @@ def compute_losses(
     losses = {
         "loss_cls": loss_cls,
         "loss_box_reg": loss_box_reg,
-        "num_pos_anchors": num_pos / gt_boxes.shape[0],
+        "num_pos_anchors": num_pos / (gt_boxes.shape[0] if shard is None else shard.total),
     }
     return losses, new_normalizer

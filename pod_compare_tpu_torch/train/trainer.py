@@ -19,6 +19,16 @@ its batches from the caller: any object with a ``canvas`` (H, W) and
 validity), as ``TrainLoader`` yields them; ``train.random_batches.
 RandomBatches`` is one. Every TEST.EVAL_PERIOD steps ``test`` scores the
 current weights with standard NMS and COCO mAP.
+
+In a process group (one process per card, ``parallel``), every process
+holds the same state and takes its rows of each global batch of
+SOLVER.IMS_PER_BATCH (``TrainLoader(process_index, process_count)``); the
+model is wrapped in ``DistributedDataParallel``, the losses' positive count
+is summed over the processes, and the dropout masks and stochastic draws
+are the global batch's at the process's rows, so that a step equals the
+one-process step over the global batch. Rank 0 alone writes checkpoints and
+metrics; every process resumes from the same checkpoint, and ``test``
+evaluates a shard of the test set per process and gathers.
 """
 
 import os
@@ -28,6 +38,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
 
 from pod_compare_tpu_torch.cli import apply_net  # a module: apply_net imports train too
@@ -43,6 +55,15 @@ from pod_compare_tpu_torch.models import (
 from pod_compare_tpu_torch.models.convert import (
     from_reference_state_dict,
     load_reference_checkpoint,
+)
+from pod_compare_tpu_torch.parallel import (
+    BatchShard,
+    all_reduce_sum,
+    check_process_count,
+    is_main_process,
+    local_device,
+    process_count,
+    process_index,
 )
 from pod_compare_tpu_torch.train.checkpoint import Checkpointer, load_params, resume_or_load
 from pod_compare_tpu_torch.train.loss import LossConfig, compute_losses
@@ -112,6 +133,27 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
     return {k: v.to(device, non_blocking=True) for k, v in out.items()}
 
 
+class _TrainForward(nn.Module):
+    """The model's training forward as a module's ``forward``, for
+    ``DistributedDataParallel`` to wrap (it hooks ``forward`` only); with
+    `remat` under ``torch.utils.checkpoint``, inside the wrapper, where
+    ``DistributedDataParallel`` allows it."""
+
+    def __init__(self, model: ProbabilisticRetinaNet, remat: bool):
+        super().__init__()
+        self.model = model
+        self.remat = remat
+
+    def forward(self, images, seeds, batch_shared, shard, tower_dropout=None):
+        if tower_dropout is not None:
+            fn, args = self.model, (images, tower_dropout)
+        else:
+            fn, args = self.model.forward_train, (images, seeds, batch_shared, shard)
+        if self.remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+
 class TrainStep:
     """Forward, losses, backward and the SGD update of one step.
 
@@ -121,7 +163,15 @@ class TrainStep:
     backward instead of kept. The recomputation replays the dropout masks
     from the seeds drawn before the forward, and nothing inside it draws
     from a generator (``checkpoint`` restores only the default generators'
-    states), so the gradients are the same."""
+    states), so the gradients are the same.
+
+    After ``data_parallel(model)`` in a process group of W processes, a
+    batch is this process's rows of a global batch W times as large
+    (``parallel.BatchShard``): the forward runs through
+    ``DistributedDataParallel``, whose gradient all-reduce averages, so the
+    backward takes W times this process's share of the global loss, and the
+    gradients are the one-process step's. The metrics a step returns are
+    this process's shares; ``global_metrics`` sums them over the processes."""
 
     def __init__(self, cfg, anchors: torch.Tensor):
         self.anchors = anchors
@@ -132,6 +182,24 @@ class TrainStep:
         self.shared_masks = bool(cfg.MODEL.PROBABILISTIC_MODELING.DROPOUT_SHARED_BATCH_TRAIN)
         clip = cfg.SOLVER.CLIP_GRADIENTS
         self.clip = (clip.CLIP_TYPE, clip.CLIP_VALUE) if clip.ENABLED else None
+        self.ddp: Optional[DistributedDataParallel] = None
+
+    def data_parallel(self, model: ProbabilisticRetinaNet) -> None:
+        """Wrap `model` in ``DistributedDataParallel`` when the process group
+        has more than one process. FrozenBN keeps no statistics, so no
+        buffer is broadcast; the frozen stages have no gradient, so they
+        are not reduced, and every trainable parameter takes part in every
+        step (no search for unused ones)."""
+        if process_count() == 1:
+            return
+        self.ddp = DistributedDataParallel(_TrainForward(model, self.remat),
+                                           broadcast_buffers=False)
+
+    def _shard(self, batch) -> Optional[BatchShard]:
+        """This process's rows of the global batch; None on one process."""
+        if self.ddp is None:
+            return None
+        return BatchShard.of(batch["images"].shape[0] * process_count())
 
     def draw_seeds(self, generator: torch.Generator) -> Tuple[List[List[int]], int]:
         """seeds[tower][layer] of the dropout masks and the int32 seed of the
@@ -144,18 +212,12 @@ class TrainStep:
                tower_dropout: Optional[TowerDropout] = None):
         """(total, {loss_cls, loss_box_reg, num_pos_anchors}, new normalizer)
         of one forward; `tower_dropout` replaces the kernel's masks."""
-        model = state.model
-        if tower_dropout is None:
-            forward, args = model.forward_train, (batch["images"], seeds, self.shared_masks)
-        else:
-            forward, args = model, (batch["images"], tower_dropout)
-        if self.remat:
-            outputs = checkpoint(forward, *args, use_reentrant=False)
-        else:
-            outputs = forward(*args)
+        shard = self._shard(batch)
+        forward = self.ddp if self.ddp is not None else _TrainForward(state.model, self.remat)
+        outputs = forward(batch["images"], seeds, self.shared_masks, shard, tower_dropout)
         losses, new_norm = compute_losses(
             outputs, self.anchors, batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"],
-            state.loss_normalizer, state.step, self.lc, loss_seed,
+            state.loss_normalizer, state.step, self.lc, loss_seed, shard,
         )
         return losses["loss_cls"] + losses["loss_box_reg"], losses, new_norm
 
@@ -164,7 +226,8 @@ class TrainStep:
         seeds, loss_seed = self.draw_seeds(state.generator)
         state.optimizer.zero_grad(set_to_none=True)
         total, losses, new_norm = self.losses(state, batch, seeds, loss_seed)
-        total.backward()
+        # DistributedDataParallel averages the gradients over the processes.
+        (total * process_count() if self.ddp is not None else total).backward()
         if self.clip is not None:
             params = [p for group in state.optimizer.param_groups for p in group["params"]]
             clip_gradients(params, *self.clip)
@@ -178,6 +241,17 @@ class TrainStep:
         metrics["total_loss"] = total.detach()
         metrics["lr"] = torch.tensor(lr)
         return metrics
+
+    def global_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A step's metrics for the global batch: the losses (this process's
+        shares) summed over the processes; the positive count and the
+        learning rate are global already. Collective after
+        ``data_parallel``."""
+        if self.ddp is None:
+            return metrics
+        keys = ("loss_cls", "loss_box_reg", "total_loss")
+        summed = all_reduce_sum(torch.stack([metrics[k] for k in keys]))
+        return dict(metrics, **dict(zip(keys, summed.unbind())))
 
 
 def make_train_step(cfg, anchors: torch.Tensor) -> TrainStep:
@@ -215,20 +289,24 @@ class Trainer:
             ``TrainLoader`` over `dataset` (default DATASETS.TRAIN[0]) with
             the config's input sizes, seed, workers and flips, on `canvas`
             (default: the one the dataset's sizes need).
-        device: torch device; None means CUDA, and raises without it.
+        device: torch device; None means CUDA (this process's card in a
+            process group), and raises without it.
 
     On CUDA the constructor turns TF32 off for convolutions and products,
     process-wide, so that float32 runs in full float32 as on the CPU.
-    ``close()`` releases the loaders the trainer built.
+    ``close()`` releases the loaders the trainer built. In a process group
+    a `loader` given by the caller must yield this process's rows of each
+    global batch, as ``TrainLoader(process_index, process_count)`` does.
     """
 
     def __init__(self, cfg, loader=None, device=None, dataset=None, canvas=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        check_process_count(cfg.PARALLEL.NUM_DEVICES)
+        self.device = resolve_device(local_device(device))
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.logger = setup_logger(name="pod_compare_tpu_torch.trainer")
+        self.logger = setup_logger(name="pod_compare_tpu_torch.trainer", rank=process_index())
         self._own_loader = loader is None
         if loader is None:
             loader = TrainLoader(
@@ -243,6 +321,8 @@ class Trainer:
                 num_workers=cfg.DATALOADER.NUM_WORKERS,
                 flip=cfg.INPUT.RANDOM_FLIP == "horizontal",
                 worker_backend=cfg.DATALOADER.WORKER_BACKEND,
+                process_index=process_index(),
+                process_count=process_count(),
             )
         self.loader = loader
         self.canvas = tuple(int(s) for s in loader.canvas)
@@ -251,14 +331,16 @@ class Trainer:
         )
         self.state = create_train_state(cfg, self.device, seed=max(cfg.SEED, 0))
         self.train_step = make_train_step(cfg, self.anchors)
+        self.train_step.data_parallel(self.state.model)
         self.checkpointer = Checkpointer(cfg.OUTPUT_DIR)
-        self.storage = EventStorage(cfg.OUTPUT_DIR)
+        self.storage = EventStorage(cfg.OUTPUT_DIR if is_main_process() else None)
         # (dataset, batch) -> (loader, predictor), reused by every test()
         # call: periodic evaluation builds neither again, and evaluating
         # two splits in turn keeps both.
         self._eval_cache = {}
         self.logger.info(
-            f"canvas={self.canvas} anchors={self.anchors.shape[0]} device={self.device}"
+            f"canvas={self.canvas} anchors={self.anchors.shape[0]} device={self.device} "
+            f"processes={process_count()}"
         )
 
     def resume_or_load(self, resume: bool = False) -> None:
@@ -325,6 +407,7 @@ class Trainer:
                 self.storage.iter = it
                 last = it == max_iter - 1
                 if (it + 1) % log_period == 0 or last:
+                    metrics = self.train_step.global_metrics(metrics)
                     host = {k: float(v) for k, v in metrics.items()}
                     host["iter_time"] = (time.perf_counter() - t0) / log_period
                     t0 = time.perf_counter()
@@ -334,7 +417,7 @@ class Trainer:
                         f"iter {it + 1}/{max_iter} "
                         + " ".join(f"{k}={v:.4g}" for k, v in sorted(host.items()))
                     )
-                if (it + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or last:
+                if ((it + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or last) and is_main_process():
                     self.checkpointer.save(it + 1, self.state.state_dict())
                 if cfg.TEST.EVAL_PERIOD > 0 and (it + 1) % cfg.TEST.EVAL_PERIOD == 0:
                     self.test()
@@ -353,7 +436,10 @@ class Trainer:
         model's weights into the predictor's own model, which runs without
         dropout in eval mode; the training model, its mode and the
         generator that seeds its dropout are left as they were. Writes
-        eval/mAP, eval/AP50 and eval/num_detections to the event storage."""
+        eval/mAP, eval/AP50 and eval/num_detections to the event storage.
+        In a process group each process evaluates its shard of the test set;
+        rank 0 scores the gathered json and writes, the others return
+        ``run_inference``'s summary without metrics."""
         cfg = self.cfg.clone()
         cfg.PROBABILISTIC_INFERENCE.INFERENCE_MODE = "standard_nms"
         cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.ENABLE = False
@@ -370,6 +456,8 @@ class Trainer:
                 divisibility=cfg.INPUT.SIZE_DIVISIBILITY,
                 num_workers=cfg.DATALOADER.NUM_WORKERS,
                 worker_backend=cfg.DATALOADER.WORKER_BACKEND,
+                process_index=process_index(),
+                process_count=process_count(),
             )
             predictor = build_predictor(cfg, loader.canvas, self.state.model.state_dict(),
                                         device=self.device)
@@ -382,6 +470,8 @@ class Trainer:
             run_metrics=False, run_map=True, verbose=False, loader=loader,
             predictor=predictor, device=self.device,
         )
+        if not summary.get("is_main_process", True):
+            return summary
         self.storage.put_scalars(**{
             "eval/mAP": summary["mAP"],
             "eval/AP50": summary["AP50"],

@@ -218,9 +218,12 @@ def test_run_inference_needs_a_device_without_cuda(setup, tmp_path):
     ("more than one process or device", {}, ["PARALLEL.NUM_DEVICES", 4]),
 ])
 def test_unported_options_are_refused(tmp_path, what, kw, opts):
+    """More than one process runs now, one per card, started by
+    ``--num-devices`` or a launcher (``tests/test_torch_parallel.py``); a
+    config that asks for more processes than the run has is refused."""
     cfg, _ = _cfgs("standard_nms", tmp_path)
     cfg.merge_from_list(opts)
-    with pytest.raises(NotImplementedError, match=what.split("'")[0]):
+    with pytest.raises(ValueError, match="asks for 4 processes, but this run has 1"):
         run_inference(cfg, NAME, "standard_nms", device="cpu", **kw)
 
 
@@ -279,7 +282,11 @@ def test_the_cli_main_runs_on_the_cpu(setup, tmp_path, monkeypatch):
     assert summary["num_images"] == 8
     files = set(os.listdir(summary["inference_output_dir"]))
     assert {"coco_instances_results.json", "mAP_res.txt", "standard_nms.yaml"} <= files
-    with pytest.raises(NotImplementedError, match="B4"):
+    # --num-devices asks for processes, one per card: more than the cards
+    # there are is refused before anything starts.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"2 CUDA devices, but torch.cuda.device_count\(\) is 1"):
         main(setup_arg_parser().parse_args(
             ["--config-file", train, "--inference-config", infer, "--num-devices", "2"]))
     shutil.rmtree(out, ignore_errors=True)

@@ -137,3 +137,27 @@ def test_kernel_matches_plain_off_the_vector_path(layout, num_samples):
         assert x.data_ptr() % 16 == 0 and n % 4 != 0
     _assert_planes_close(kf.focal(x, s, t, 9, num_samples),
                          kf.focal_plain(x, s, t, 9, num_samples))
+
+
+@pytest.mark.parametrize("num_samples", [3, 10])
+@pytest.mark.parametrize("first", [1, 3])
+def test_index_base_draws_the_full_draw_s_rows(first, num_samples):
+    """A data-parallel process's rows [first:] of the training path's
+    (4, R, 7) logits, launched with ``index_base`` at their first element,
+    give the full launch's rows bit for bit, and match the plain version
+    with the same base. At base 0 the kernel is the one it was: the smoke's
+    focal phase, given ``--parent`` (a checkout of the commit before
+    ``index_base``), holds the two bit for bit."""
+    _cuda()
+    x, s, t = _inputs((4, 176580, 7), seed=first)
+    full = kf.focal(x, s, t, 123, num_samples)
+    base = first * x[0].numel()
+    rows = [a[first:].clone() for a in (x, s, t)]
+    part = kf.focal(*rows, 123, num_samples, index_base=base)
+    for a, b in zip(part, full):
+        assert torch.equal(a, b[first:])
+    _assert_planes_close(part, kf.focal_plain(*rows, 123, num_samples, index_base=base))
+    assert all(torch.equal(a, b) for a, b in zip(kf.focal(x, s, t, 123, num_samples,
+                                                          index_base=0), full))
+    with pytest.raises(ValueError, match="index base"):
+        kf.focal(x, s, t, 123, num_samples, index_base=-1)

@@ -58,7 +58,8 @@ def test_every_module_imports_with_jax_and_its_package_blocked():
                  "evaluation.calibration", "evaluation.calibration_errors",
                  "evaluation.category_mapping", "evaluation.coco_eval", "evaluation.matching",
                  "evaluation.probabilistic_metrics", "evaluation.scoring", "native",
-                 "train.trainer", "utils.profiling", "utils.table"):
+                 "train.trainer", "utils.profiling", "utils.table", "parallel",
+                 "parallel.mesh", "ops.preprocess"):
         assert f"pod_compare_tpu_torch.{name}" in modules, name
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
