@@ -143,6 +143,17 @@ Phases, each printing its seconds on its own line as it ends:
      one process's; phase 11's five ensemble members placed by
      create_ensemble_placement, bit-identical to the unplaced predictor;
      resize_and_pad of two 720x1280 frames on the card against the CPU.
+ 14. export: the serving export (inference/export.py) through
+     cli.export_model, as a user runs it, from a checkpoint of the seeded,
+     tempered flagship weights: the flagship (10 runs, batch 2, 736x1280,
+     bf16) and mc_dropout_ensembles_post_nms cut to 2 runs and batch 1,
+     each exported on the card, saved, then loaded and served by a fresh
+     process in which the port's models, config and predictor (and JAX)
+     cannot be imported, from the generator seed of a live call: every
+     output field bit-identical to the live call's, the dropout kernel
+     launched as often (400 for the flagship); torch.export and
+     torch.export.save seconds, graph nodes, load seconds, the first served
+     call and the median of 5 in ms/batch beside the live predictor's.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 
 It needs a CUDA device and the repository around it; it exits non-zero
@@ -172,7 +183,7 @@ import numpy as np
 import torch
 
 from pod_compare_tpu_torch import native
-from pod_compare_tpu_torch.cli import train_net
+from pod_compare_tpu_torch.cli import export_model, train_net
 from pod_compare_tpu_torch.cli.apply_net import main as apply_net_main
 from pod_compare_tpu_torch.cli.apply_net import run_inference
 from pod_compare_tpu_torch.cli.visualize_predictions import visualize_dataset
@@ -194,6 +205,7 @@ from pod_compare_tpu_torch.evaluation.probabilistic_metrics import (
     evaluate_probabilistic_metrics,
 )
 from pod_compare_tpu_torch.inference import (
+    Detections,
     build_predictor,
     classification_probs,
     detections_to_json,
@@ -566,8 +578,10 @@ def run_slice(seed: int, card: str):
     levels = len(cfg.MODEL.RETINANET.IN_FEATURES)
     expected = runs * 2 * cfg.MODEL.RETINANET.NUM_CONVS * levels
     kdropout.LAUNCHES = 0
+    t0 = time.perf_counter()
     dets = call(seed)
     torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
     launches = kdropout.LAUNCHES
     if launches != expected:
         raise AssertionError(f"{launches} dropout launches, expected {expected}")
@@ -598,7 +612,8 @@ def run_slice(seed: int, card: str):
     t2 = time.perf_counter()
     ms = float(np.median(times))
     log(f"slice: {launches} dropout launches (expected {expected}), {n_valid} valid "
-        f"detections, largest BayesOD cluster {biggest}, {len(records)} json records")
+        f"detections, largest BayesOD cluster {biggest}, {len(records)} json records; the "
+        f"process's first call {first_s:.2f} s")
     log(f"slice: {ms:.2f} ms/batch median of {[round(t, 2) for t in times]}, "
         f"{BATCH / ms * 1e3:.2f} img/s, head bank {(t1 - t0) * 1e3:.2f} ms, core+BayesOD "
         f"{(t2 - t1) * 1e3:.2f} ms, peak memory {peak / 2 ** 30:.3f} GiB ({card})")
@@ -1726,7 +1741,11 @@ def busy_share(call, device) -> float:
     """Device busy time over wall time of one call traced with torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # The card's activity only: a trace of every host op as well adds its own
+    # cost to each op inside the traced wall, and events to process after.
+    # (A rehearsal on the CPU traces the host.)
+    cuda = torch.device(device).type == "cuda"
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
         call()
         sync(device)
@@ -1751,6 +1770,7 @@ def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
                  * flagship.MODEL.RETINANET.NUM_CONVS * len(flagship.MODEL.RETINANET.IN_FEATURES))
     records = {}
     for name, infer, opts in MODE_CASES:
+        t_mode = time.perf_counter()
         cfg = mode_config(infer, opts)
         predictor = mode_predictor(cfg, canvas, tempered, members, device)
         call = lambda s: predictor(images, sizes, sizes, generator=torch.Generator().manual_seed(s))
@@ -1812,7 +1832,8 @@ def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
             f"card busy {100 * share:.1f}% (host {100 * (1 - share):.1f}%), peak memory "
             f"{peak / 2 ** 30:.3f} GiB"
             + (f", greedy merge {greedy['clusters']} clusters (one read-back each) in "
-               f"{greedy['ms']:.2f} ms" if greedy["calls"] else "") + f" ({card})")
+               f"{greedy['ms']:.2f} ms" if greedy["calls"] else "")
+            + f"; the mode's checks {time.perf_counter() - t_mode:.2f} s ({card})")
         if name == "bayes_od_mc_dropout_mc_iid":
             check_sampled_law(predictor, images, seed, card)
         del predictor, dets
@@ -3037,6 +3058,215 @@ def run_parallel(seed: int, card: str, work: str, members, device=None, canvas=C
     return launches
 
 
+EXPORT_TIMED_CALLS = 5
+# The post-NMS artifact, cut to 2 MC runs (from the config's 10) and batch 1:
+# at batch 2 its 17,507-node program took 57 s to export and 23 s to load.
+EXPORT_POST_NMS = ("Inference/mc_dropout_ensembles_post_nms.yaml",
+                   ["PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS", "2"], 1)
+# A fresh process that serves one artifact with the model code unimportable:
+# argv is the device, the images (.npy), their (h, w) sizes (json), the
+# generator seed, the timed calls, the file for the first call's outputs and
+# the artifact. It prints one json line: load seconds, first call ms, its
+# dropout launches, the timed calls' ms.
+SERVE_SCRIPT = r"""
+import importlib.abc, json, statistics, sys, time
+
+BLOCKED = ("pod_compare_tpu_torch.models", "pod_compare_tpu_torch.config",
+           "pod_compare_tpu_torch.inference.predictor", "jax", "pod_compare_tpu")
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+from pod_compare_tpu_torch.inference.export import load_artifact
+from pod_compare_tpu_torch.ops.kernels import dropout as kd
+
+device, images_path, sizes, seed, calls, out_path, artifact = sys.argv[1:]
+images = torch.from_numpy(np.load(images_path)).to(device)
+sizes, seed, calls = json.loads(sizes), int(seed), int(calls)
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+t0 = time.perf_counter()
+served = load_artifact(artifact)
+load_s = time.perf_counter() - t0
+call = lambda s: served(images, sizes, sizes, torch.Generator().manual_seed(s))
+sync()
+kd.LAUNCHES = 0
+t0 = time.perf_counter()
+dets = call(seed)
+sync()
+first_ms = (time.perf_counter() - t0) * 1e3
+launches = kd.LAUNCHES
+torch.save(tuple(None if f is None else f.cpu() for f in dets), out_path)
+times = []
+for i in range(calls):
+    sync()
+    t0 = time.perf_counter()
+    call(seed + 1 + i)
+    sync()
+    times.append((time.perf_counter() - t0) * 1e3)
+leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not leaked, leaked
+print(json.dumps(dict(load_s=load_s, first_ms=first_ms, launches=launches,
+                      ms=statistics.median(times), times=times)))
+"""
+
+
+def same_bits(a, b) -> bool:
+    """Both None, or tensors of one shape and dtype with the same bytes."""
+    if a is None or b is None:
+        return a is None and b is None
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def dispatch_us(device) -> dict:
+    """Host microseconds per launch of K1 through its operator and through
+    its ctypes wrapper, on a (1, 256, 8, 8) bf16 tensor whose kernel takes a
+    few microseconds: 2000 launches each, in turns (operator, wrapper,
+    wrapper, operator), the median of each."""
+    x = torch.randn(1, 256, 8, 8, device=device).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    seed = torch.tensor(12345)
+    calls = {"operator": lambda: kdropout.dropout_op(x, seed, 0.2, True, 0, True),
+             "wrapper": lambda: kdropout.dropout_cuda(x, 12345, 0.2, True, 0, True)}
+    times = {k: [] for k in calls}
+    for name in ("operator", "wrapper", "wrapper", "operator"):
+        calls[name]()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            calls[name]()
+        sync(device)
+        times[name].append((time.perf_counter() - t0) / 2000 * 1e6)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def run_export(seed: int, card: str, work: str, device="cuda", canvas=CANVAS) -> dict:
+    """Phase 14: the serving export. Returns each artifact's record (live
+    and served launches, times, graph nodes) and, under "dispatch_us", K1's
+    host cost a launch through its operator and through its wrapper. Each
+    artifact is written by cli.export_model's main, as a user runs it, and
+    served by a fresh process started as soon as it is written (the
+    flagship's serves while the post-NMS artifact is exported). A rehearsal
+    on the CPU passes device 'cpu' and a small canvas."""
+    data = os.path.join(work, "export_data")
+    os.environ["POD_COMPARE_DATA_DIR"] = data
+    flagship = merge_configs(TRAIN_CFG, INFER_CFG)
+    canvas_images = canvases(seed + 14, canvas, BATCH)
+    all_sizes = IMAGE_SIZES if canvas == CANVAS else np.array([canvas] * BATCH, np.float32)
+    sd = convert.from_jax_params(random_jax_params(seed, NUM_CLASSES))
+    tempered = temper_head(sd, flagship, torch.from_numpy(canvas_images[:1]), device)
+    out_dir = os.path.join(data, "BDD-Detection", "retinanet",
+                           os.path.splitext(os.path.basename(TRAIN_CFG))[0], f"random_seed_{seed}")
+    Checkpointer(out_dir).save(0, {"model": {k: v.cpu() for k, v in tempered.items()}})
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cases = {"flagship": (INFER_CFG, [], BATCH), "post_nms": EXPORT_POST_NMS}
+    records, live, serving = {}, {}, {}
+    try:
+        for name, (infer, opts, batch) in cases.items():
+            cfg = merge_configs(TRAIN_CFG, infer, opts)
+            runs = int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS)
+            expected = (runs * 2 * cfg.MODEL.RETINANET.NUM_CONVS
+                        * len(cfg.MODEL.RETINANET.IN_FEATURES))
+            images_path = os.path.join(work, f"export_{name}.npy")
+            np.save(images_path, canvas_images[:batch])
+            images, sizes = torch.from_numpy(canvas_images[:batch]).to(device), all_sizes[:batch]
+            predictor = build_predictor(cfg, canvas, tempered, device=device)
+            call = lambda s: predictor(images, sizes, sizes,
+                                       generator=torch.Generator().manual_seed(s))
+            sync(device)
+            kdropout.LAUNCHES = 0
+            dets = call(seed)
+            sync(device)
+            launches = kdropout.LAUNCHES
+            if launches != expected:
+                raise AssertionError(f"export {name}: {launches} live dropout launches, "
+                                     f"expected {expected}")
+            live[name] = tuple(None if f is None else f.cpu() for f in dets)
+            times = []
+            for i in range(EXPORT_TIMED_CALLS):
+                sync(device)
+                t0 = time.perf_counter()
+                call(seed + 1 + i)
+                sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            del predictor, dets
+            # The CLI's main, as a user runs it, from the checkpoint written above.
+            args = setup_arg_parser().parse_args(
+                ["--config-file", TRAIN_CFG, "--inference-config", infer,
+                 "--random-seed", str(seed)] + opts)
+            args.device, args.batch_size, args.random_init = device, batch, False
+            args.canvas_height, args.canvas_width = canvas
+            args.output_dir = os.path.join(work, f"artifact_{name}")
+            t0 = time.perf_counter()
+            export_model.main(args)
+            cli_s = time.perf_counter() - t0
+            with open(os.path.join(args.output_dir, "manifest.json")) as f:
+                manifest = json.load(f)
+            served_path = os.path.join(work, f"served_{name}.pt")
+            with open(served_path + ".log", "w") as log_file:
+                serving[name] = subprocess.Popen(
+                    [sys.executable, "-c", SERVE_SCRIPT, device, images_path,
+                     json.dumps(sizes.tolist()), str(seed), str(EXPORT_TIMED_CALLS), served_path,
+                     args.output_dir],
+                    cwd=repo, env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+                    stderr=log_file, text=True)
+            records[name] = dict(
+                runs=runs, batch=batch, live_launches=launches, expected=expected,
+                live_ms=float(np.median(times)), live_times=times, cli_s=cli_s,
+                export_s=manifest["export_seconds"], save_s=manifest["save_seconds"],
+                graph_nodes=manifest["graph_nodes"], served_path=served_path,
+                bytes=os.path.getsize(os.path.join(args.output_dir, "pipeline.pt2")))
+            log(f"export {name}: {runs} runs, batch {batch}, {launches} live dropout launches, "
+                f"live {records[name]['live_ms']:.2f} ms/batch median of "
+                f"{[round(t, 2) for t in times]}; cli.export_model {cli_s:.2f} s (torch.export "
+                f"{manifest['export_seconds']:.2f} s, {manifest['graph_nodes']} graph nodes; "
+                f"torch.export.save {manifest['save_seconds']:.2f} s, "
+                f"{records[name]['bytes'] / 2 ** 20:.1f} MiB) ({card})")
+        dispatch = dispatch_us(device) if device == "cuda" else None
+        for name, proc in serving.items():
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                with open(records[name]["served_path"] + ".log") as f:
+                    raise AssertionError(f"serving {name} failed:\n{f.read()[-4000:]}")
+            records[name].update({f"served_{k}": v
+                                  for k, v in json.loads(out.strip().splitlines()[-1]).items()})
+    finally:
+        for proc in serving.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, rec in records.items():
+        got = torch.load(rec["served_path"])
+        fields = [f for f, a in zip(Detections._fields, live[name]) if a is not None]
+        differ = [f for f, a, b in zip(Detections._fields, live[name], got)
+                  if not same_bits(a, b)]
+        if differ:
+            raise AssertionError(f"export {name}: served {differ} differ from the live call's")
+        if rec["served_launches"] != rec["live_launches"]:
+            raise AssertionError(f"export {name}: {rec['served_launches']} served dropout "
+                                 f"launches, live {rec['live_launches']}")
+        log(f"export {name}: served by a process without the model code: {fields} "
+            f"bit-identical to the live call, {rec['served_launches']} dropout launches "
+            f"(expected {rec['expected']}); load {rec['served_load_s']:.2f} s, first call "
+            f"{rec['served_first_ms']:.2f} ms, {rec['served_ms']:.2f} ms/batch median of "
+            f"{[round(t, 2) for t in rec['served_times']]} beside live {rec['live_ms']:.2f} "
+            f"ms/batch ({card})")
+    if dispatch is not None:
+        log(f"export: K1's host cost a launch, through its operator {dispatch['operator']:.2f} "
+            f"us, through its ctypes wrapper {dispatch['wrapper']:.2f} us (2000 launches on "
+            f"(1, 256, 8, 8) bf16, in turns) ({card})")
+    records["dispatch_us"] = dispatch
+    return records
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3123,8 +3353,12 @@ def main() -> int:
 
         t0 = time.perf_counter()
         modes, members = run_modes(args.seed, card)
+        t1 = time.perf_counter()
         check_modes_against_cpu(args.seed, card)
+        t2 = time.perf_counter()
         run_modes_apply_net(args.seed, card, work, members)
+        log(f"modes: the modes on the card {t1 - t0:.2f} s, against the CPU {t2 - t1:.2f} s, "
+            f"apply_net {time.perf_counter() - t2:.2f} s ({card})")
         phase("modes", t0)
 
         t0 = time.perf_counter()
@@ -3134,6 +3368,10 @@ def main() -> int:
         t0 = time.perf_counter()
         parallel = run_parallel(args.seed, card, work, members)
         phase("parallel", t0)
+
+        t0 = time.perf_counter()
+        export = run_export(args.seed, card, work)
+        phase("export", t0)
     log(f"[total] {time.perf_counter() - t_all:.2f} s ({card})")
 
     kernels = [{
@@ -3180,6 +3418,9 @@ def main() -> int:
             "apply_net_2_ranks": parallel["apply_net_2_ranks"],
             "train_net_2_ranks": [n[0] for n in parallel["train_net_2_ranks"]],
         },
+        "export_launches": export["flagship"]["served_launches"],
+        "export_post_nms_launches": export["post_nms"]["served_launches"],
+        "export_dispatch_us": export["dispatch_us"],
     }, {
         "name": "stochastic_focal_elem",
         "route": "cuda",

@@ -13,12 +13,21 @@ from pod_compare_tpu_torch.inference.modes import (
     concatenate_detections,
     standard_nms,
 )
+from pod_compare_tpu_torch.inference.export import load_artifact, save_artifact
 from pod_compare_tpu_torch.inference.postprocess import detections_to_json
-from pod_compare_tpu_torch.inference.predictor import (
-    MODES,
-    ProbabilisticPredictor,
-    build_predictor,
-)
+
+# The predictor imports the model code, which a serving host that loads an
+# artifact (inference/export.py) goes without: it is imported at first use.
+_PREDICTOR_NAMES = ("MODES", "ProbabilisticPredictor", "build_predictor")
+
+
+def __getattr__(name):
+    if name in _PREDICTOR_NAMES:
+        from pod_compare_tpu_torch.inference import predictor
+
+        return getattr(predictor, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "Candidates",
@@ -32,8 +41,10 @@ __all__ = [
     "classification_probs",
     "concatenate_detections",
     "detections_to_json",
+    "load_artifact",
     "pick_chunk",
     "probabilistic_inference_core",
     "sampled_box_moments",
+    "save_artifact",
     "standard_nms",
 ]

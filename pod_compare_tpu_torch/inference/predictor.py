@@ -16,12 +16,15 @@ INFERENCE_MODE of ``configs/Inference/``. One call runs
   -> rescale.
 
 PyTorch runs eagerly. The predictor runs on CUDA unless given another
-device, and raises when CUDA is absent and no device was given.
+device, and raises when CUDA is absent and no device was given. Its
+forward after the host's seed draw is one module (``PipelineModule``),
+which ``inference/export.py`` exports whole.
 """
 
 from typing import List, Optional, Sequence
 
 import torch
+from torch import nn
 
 from pod_compare_tpu_torch.inference import modes as M
 from pod_compare_tpu_torch.inference.core import (
@@ -30,6 +33,7 @@ from pod_compare_tpu_torch.inference.core import (
     probabilistic_inference_core,
 )
 from pod_compare_tpu_torch.inference.postprocess import detector_postprocess
+from pod_compare_tpu_torch.inference.seeds import draw_call_seeds, draw_seeds
 from pod_compare_tpu_torch.models import (
     KernelDropout,
     TowerDropout,
@@ -39,12 +43,7 @@ from pod_compare_tpu_torch.models import (
 )
 from pod_compare_tpu_torch.utils.device import resolve_device
 
-_SEED_HIGH = 2 ** 63 - 1
 MODES = ("standard_nms", "anchor_statistics", "bayes_od", "mc_dropout_ensembles", "ensembles")
-
-
-def _draw_seeds(generator: torch.Generator, shape) -> torch.Tensor:
-    return torch.randint(0, _SEED_HIGH, shape, generator=generator, dtype=torch.int64)
 
 
 def _stack(runs):
@@ -58,74 +57,49 @@ def _stack_images(per_image: List[Detections]) -> Detections:
     ])
 
 
-class ProbabilisticPredictor:
-    """Inference pipeline for one INFERENCE_MODE.
+class PipelineModule(nn.Module):
+    """The predictor's forward as one module: (images, input_sizes,
+    output_sizes, dropout_seeds) -> Detections, with no host-side draw and
+    no data-dependent Python, so that ``torch.export`` captures it whole
+    (``inference/export.py``). It owns the member models (`models`, one
+    unless the mode is `ensembles`), the anchors (a buffer) and the
+    settings of the INFERENCE_MODE; the stages below are its methods.
 
-    Args:
-        cfg: train config + inference config merged.
-        image_size: network input (H, W) after resize and padding.
-        state_dict: model weights in this package's (detectron2) names.
-        device: torch device; None means CUDA.
-        state_dicts: for the `ensembles` mode, one state dict per member,
-            in the order of ENSEMBLES.RANDOM_SEED_NUMS (`state_dict` unused).
-        placement: for the `ensembles` mode, the device of each member
-            (``parallel.create_ensemble_placement``; default: every member
-            on `device`). A member's model lives on its device, the images
-            are copied to it, and its outputs come back to `device` before
-            the cross-member merge. A placement of another length than the
-            members raises.
-
-    On CUDA the constructor sets ``torch.backends.cudnn.allow_tf32`` and
-    ``torch.backends.cuda.matmul.allow_tf32`` to False, process-wide, so that
-    float32 convolutions and products run in full float32 as on the CPU.
-    ``SPLIT_HEAD_PROGRAM`` lays out XLA programs in the JAX package; here it
-    changes nothing, but it is refused where the JAX package refuses it.
-    ``HEAD_QUANT`` 'int8' runs the head's tower convs in int8
-    (``ops/quant.py``); any value but 'none' and 'int8' raises ValueError.
+    `member_devices` gives each member's device (the images are copied to
+    it and its outputs back to `device`); `dropout_seeds` is the (M, 2,
+    num_convs) int64 CPU tensor of `seeds.draw_call_seeds`, read only by an
+    MC bank; `sampling_generator` seeds the Monte-Carlo sampling impls
+    (`_generators`) and is the one argument an export cannot take.
     """
 
-    def __init__(self, cfg, image_size: Sequence[int], state_dict=None, device=None,
-                 state_dicts=None, placement=None):
+    def __init__(self, cfg, image_size: Sequence[int], models, device: torch.device,
+                 member_devices: Sequence[torch.device]):
+        super().__init__()
         pi = cfg.PROBABILISTIC_INFERENCE
         self.mode = pi.INFERENCE_MODE
-        if self.mode not in MODES:
-            raise ValueError(f"Invalid inference mode {self.mode}.")
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        self.device = device
         self.image_size = tuple(int(s) for s in image_size)
-        if self.mode == "ensembles":
-            if not state_dicts:
-                raise ValueError("ensembles mode needs one state dict per member (state_dicts)")
-            if placement is not None and len(placement) != len(state_dicts):
-                raise ValueError(f"a placement of {len(placement)} devices for "
-                                 f"{len(state_dicts)} ensemble members")
-            self.member_devices = [torch.device(d) for d in placement or
-                                   [self.device] * len(state_dicts)]
-            self.models = [self._load(sd, d) for sd, d in zip(state_dicts, self.member_devices)]
-        else:
-            if state_dict is None:
-                raise ValueError(f"{self.mode} needs the model's state_dict")
-            if placement is not None:
-                raise ValueError(f"a member placement is for the ensembles mode, not {self.mode}")
-            self.models = [self._load(state_dict)]
-        self.model = self.models[0]
+        self.models = nn.ModuleList(models)
+        self.member_devices = list(member_devices)
+        model = self.models[0]
+        self.num_convs = model.head.num_convs
 
         gen = build_anchor_generator(cfg)
-        self.anchors = torch.as_tensor(gen.concatenated(self.image_size), device=self.device)
+        self.register_buffer(
+            "anchors", torch.as_tensor(gen.concatenated(self.image_size), device=device),
+            persistent=False)
         self.level_sizes = tuple(a.shape[0] for a in gen.per_level(self.image_size))
 
         self.mc_enabled = bool(pi.MC_DROPOUT.ENABLE)
         self.num_runs = int(pi.MC_DROPOUT.NUM_RUNS) if self.mc_enabled else 1
         self.batch_shared_masks = bool(pi.MC_DROPOUT.BATCH_SHARED_MASKS)
-        if self.mc_enabled and self.model.dropout_rate == 0.0:
+        if self.mc_enabled and model.dropout_rate == 0.0:
             raise ValueError(
                 "MC_DROPOUT.ENABLE requires a model trained with dropout "
                 "(MODEL.PROBABILISTIC_MODELING.DROPOUT_RATE > 0)."
             )
         self.is_multi = self.mode == "ensembles" or (self.mc_enabled and self.num_runs > 1)
+        self.draws_masks = self.is_multi and self.mode != "ensembles"
         merge = {"mc_dropout_ensembles": pi.ENSEMBLES_DROPOUT.BOX_MERGE_MODE,
                  "ensembles": pi.ENSEMBLES.BOX_MERGE_MODE}.get(self.mode)
         self.post_nms = merge == "post_nms"
@@ -143,6 +117,7 @@ class ProbabilisticPredictor:
         self.nms_thresh = float(rc.NMS_THRESH_TEST)
         self.max_dets = int(cfg.TEST.DETECTIONS_PER_IMAGE)
         self.affinity = float(pi.AFFINITY_THRESHOLD)
+        self.bayes_od_merge = (pi.BAYES_OD.BOX_MERGE_MODE, pi.BAYES_OD.CLS_MERGE_MODE)
         pm = cfg.MODEL.PROBABILISTIC_MODELING
         self.core_kwargs = dict(
             topk=int(rc.TOPK_CANDIDATES_TEST),
@@ -155,14 +130,17 @@ class ProbabilisticPredictor:
             box_num_samples=int(pm.BBOX_COV_LOSS.NUM_SAMPLES),
         )
         self.sampled = pi.CLS_SAMPLING != "analytic" or pi.BOX_SAMPLING != "analytic"
-
-    def _load(self, state_dict, device=None):
-        model = build_model(self.cfg, head_quant=self.cfg.PROBABILISTIC_INFERENCE.HEAD_QUANT)
-        model.load_state_dict(state_dict)
-        return model.cast_convs().to(device or self.device).eval()
+        self.eval()
 
     # ------------------------------------------------------------ stages
-    def _runs(self, images, dropout_gen, tower_dropouts) -> List[dict]:
+    def _seeds(self, dropout_gen, tower_dropouts) -> Optional[torch.Tensor]:
+        """The MC bank's (M, 2, num_convs) seeds from `dropout_gen`, where
+        the bank draws its masks with the kernel."""
+        if not self.draws_masks or tower_dropouts is not None:
+            return None
+        return draw_seeds(dropout_gen, (self.num_runs, 2, self.num_convs))
+
+    def _runs(self, images, dropout_seeds, tower_dropouts=None) -> List[dict]:
         if self.mode == "ensembles":
             # Each member's forward is queued on its own card before any
             # output is copied back, so members on several cards overlap.
@@ -170,19 +148,26 @@ class ProbabilisticPredictor:
                     for model, d in zip(self.models, self.member_devices)]
             return [{k: None if v is None else v.to(self.device, non_blocking=True)
                      for k, v in run.items()} for run in runs]
-        model = self.model
+        model = self.models[0]
         feats = model.backbone_features(images)
         prefix = model.head.prefix(feats)
         if not self.is_multi:
             return [model.head.rest(prefix)]
         if tower_dropouts is None:
             offsets = level_offsets(feats, self.batch_shared_masks)
-            seeds = _draw_seeds(dropout_gen, (self.num_runs, 2, model.head.num_convs)).tolist()
             tower_dropouts = [
                 KernelDropout(s, model.dropout_rate, offsets, self.batch_shared_masks)
-                for s in seeds
+                for s in dropout_seeds
             ]
         return [model.head.rest(prefix, td) for td in tower_dropouts]
+
+    def _head_outputs(self, images, dropout_seeds, tower_dropouts=None):
+        runs = self._runs(images, dropout_seeds, tower_dropouts)
+        if not self.is_multi:
+            return runs[0], None
+        stacked = _stack(runs)
+        mean = {k: None if v is None else v.mean(dim=0) for k, v in stacked.items()}
+        return mean, stacked["box_delta"]
 
     @torch.no_grad()
     def run_outputs(
@@ -198,7 +183,8 @@ class ProbabilisticPredictor:
         The MC-dropout runs draw their masks with the dropout kernel from
         seeds of `dropout_gen`, unless `tower_dropouts` gives one
         `TowerDropout` per run (the tests inject the JAX package's masks)."""
-        return _stack(self._runs(images, dropout_gen, tower_dropouts))
+        return _stack(self._runs(images, self._seeds(dropout_gen, tower_dropouts),
+                                 tower_dropouts))
 
     @torch.no_grad()
     def head_outputs(
@@ -210,22 +196,15 @@ class ProbabilisticPredictor:
         """(outputs, run_deltas): outputs of (B, R, k) float32 tensors,
         averaged over the runs when there are several, and the (M, B, R, 4)
         per-run deltas (None for one run). Arguments as `run_outputs`."""
-        runs = self._runs(images, dropout_gen, tower_dropouts)
-        if not self.is_multi:
-            return runs[0], None
-        stacked = _stack(runs)
-        mean = {k: None if v is None else v.mean(dim=0) for k, v in stacked.items()}
-        return mean, stacked["box_delta"]
+        return self._head_outputs(images, self._seeds(dropout_gen, tower_dropouts),
+                                  tower_dropouts)
 
     def _mode(self, cands):
         if self.mode == "anchor_statistics":
             return M.anchor_statistics(cands, self.nms_thresh, self.max_dets, self.affinity)
         if self.mode == "bayes_od":
-            bod = self.cfg.PROBABILISTIC_INFERENCE.BAYES_OD
-            return M.bayes_od(
-                cands, self.nms_thresh, self.max_dets, self.affinity,
-                bod.BOX_MERGE_MODE, bod.CLS_MERGE_MODE,
-            )
+            return M.bayes_od(cands, self.nms_thresh, self.max_dets, self.affinity,
+                              *self.bayes_od_merge)
         # standard_nms, and the pre-NMS MC-dropout and ensemble merges
         return M.standard_nms(cands, self.nms_thresh, self.max_dets)
 
@@ -241,9 +220,9 @@ class ProbabilisticPredictor:
             generator = torch.Generator().manual_seed(0)
         device_gen = lambda s: torch.Generator(device=self.device).manual_seed(s)
         gens = []
-        for seed in _draw_seeds(generator, (batch,)).tolist():
+        for seed in draw_seeds(generator, (batch,)).tolist():
             if runs:
-                unit_seeds = _draw_seeds(torch.Generator().manual_seed(seed), (runs,)).tolist()
+                unit_seeds = draw_seeds(torch.Generator().manual_seed(seed), (runs,)).tolist()
                 gens.append([device_gen(s) for s in unit_seeds])
             else:
                 gens.append(device_gen(seed))
@@ -318,7 +297,90 @@ class ProbabilisticPredictor:
             per_image.append(self._rescale(merged, b, input_sizes, output_sizes))
         return _stack_images(per_image)
 
-    # ------------------------------------------------------------ API
+    @torch.no_grad()
+    def forward(self, images: torch.Tensor, input_sizes: torch.Tensor,
+                output_sizes: torch.Tensor, dropout_seeds: torch.Tensor,
+                sampling_generator: Optional[torch.Generator] = None) -> Detections:
+        """Images on the device to batched Detections: the head outputs of
+        every run, then `detect_post_nms` or `detect`."""
+        if self.post_nms:
+            return self.detect_post_nms(_stack(self._runs(images, dropout_seeds)),
+                                        input_sizes, output_sizes, sampling_generator)
+        outs, run_deltas = self._head_outputs(images, dropout_seeds)
+        return self.detect(outs, run_deltas, input_sizes, output_sizes, sampling_generator)
+
+
+class ProbabilisticPredictor:
+    """Inference pipeline for one INFERENCE_MODE.
+
+    Args:
+        cfg: train config + inference config merged.
+        image_size: network input (H, W) after resize and padding.
+        state_dict: model weights in this package's (detectron2) names.
+        device: torch device; None means CUDA.
+        state_dicts: for the `ensembles` mode, one state dict per member,
+            in the order of ENSEMBLES.RANDOM_SEED_NUMS (`state_dict` unused).
+        placement: for the `ensembles` mode, the device of each member
+            (``parallel.create_ensemble_placement``; default: every member
+            on `device`). A member's model lives on its device, the images
+            are copied to it, and its outputs come back to `device` before
+            the cross-member merge. A placement of another length than the
+            members raises.
+
+    A call is a host prelude (``seeds.draw_call_seeds``) and the pure
+    forward of `pipeline`, a ``PipelineModule``; the stages (`run_outputs`,
+    `head_outputs`, `detect`, `detect_post_nms`) and the settings (`models`,
+    `anchors`, `num_runs`, `post_nms`, `core_kwargs`, ...) are the
+    pipeline's, reached through this object.
+
+    On CUDA the constructor sets ``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` to False, process-wide, so that
+    float32 convolutions and products run in full float32 as on the CPU.
+    ``SPLIT_HEAD_PROGRAM`` lays out XLA programs in the JAX package; here it
+    changes nothing, but it is refused where the JAX package refuses it.
+    ``HEAD_QUANT`` 'int8' runs the head's tower convs in int8
+    (``ops/quant.py``); any value but 'none' and 'int8' raises ValueError.
+    """
+
+    def __init__(self, cfg, image_size: Sequence[int], state_dict=None, device=None,
+                 state_dicts=None, placement=None):
+        mode = cfg.PROBABILISTIC_INFERENCE.INFERENCE_MODE
+        if mode not in MODES:
+            raise ValueError(f"Invalid inference mode {mode}.")
+        self.cfg = cfg
+        device = resolve_device(device)
+        if device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if mode == "ensembles":
+            if not state_dicts:
+                raise ValueError("ensembles mode needs one state dict per member (state_dicts)")
+            if placement is not None and len(placement) != len(state_dicts):
+                raise ValueError(f"a placement of {len(placement)} devices for "
+                                 f"{len(state_dicts)} ensemble members")
+            member_devices = [torch.device(d) for d in placement or [device] * len(state_dicts)]
+            models = [self._load(sd, d) for sd, d in zip(state_dicts, member_devices)]
+        else:
+            if state_dict is None:
+                raise ValueError(f"{mode} needs the model's state_dict")
+            if placement is not None:
+                raise ValueError(f"a member placement is for the ensembles mode, not {mode}")
+            member_devices = [device]
+            models = [self._load(state_dict, device)]
+        self.model = models[0]
+        self.pipeline = PipelineModule(cfg, image_size, models, device, member_devices)
+
+    def __getattr__(self, name):
+        pipeline = self.__dict__.get("pipeline")
+        if pipeline is None:
+            raise AttributeError(name)
+        return getattr(pipeline, name)
+
+    def _load(self, state_dict, device):
+        model = build_model(self.cfg, head_quant=self.cfg.PROBABILISTIC_INFERENCE.HEAD_QUANT)
+        model.load_state_dict(state_dict)
+        return model.cast_convs().to(device).eval()
+
     def __call__(
         self,
         images,
@@ -341,19 +403,11 @@ class ProbabilisticPredictor:
             Batched Detections (leading batch axis) in original-image
             coordinates.
         """
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        dropout_seed, sampling_seed = _draw_seeds(generator, (2,)).tolist()
-        dropout_gen = torch.Generator().manual_seed(dropout_seed)
-        sampling_gen = torch.Generator().manual_seed(sampling_seed)
+        dropout_seeds, sampling_seed = draw_call_seeds(generator, self.num_runs, self.num_convs)
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         sizes = lambda s: torch.as_tensor(s, dtype=torch.float32, device=self.device)
-        if self.post_nms:
-            return self.detect_post_nms(self.run_outputs(images, dropout_gen),
-                                        sizes(input_sizes), sizes(output_sizes), sampling_gen)
-        outs, run_deltas = self.head_outputs(images, dropout_gen)
-        return self.detect(outs, run_deltas, sizes(input_sizes), sizes(output_sizes),
-                           sampling_gen)
+        return self.pipeline(images, sizes(input_sizes), sizes(output_sizes), dropout_seeds,
+                             torch.Generator().manual_seed(sampling_seed))
 
 
 def build_predictor(cfg, image_size, state_dict=None, device=None,

@@ -11,6 +11,12 @@ from torch import nn
 from torch.nn import functional as F
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in `dtype`, with no cast where it has that dtype already (an
+    exported program would record the no-op cast as two nodes)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm with frozen statistics and affine parameters (detectron2's
     FrozenBatchNorm2d, eps 1e-5). The folded multiply-add is computed in
@@ -28,7 +34,7 @@ class FrozenBatchNorm2d(nn.Module):
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
         add = self.bias - self.running_mean * mul
         shape = (1, -1, 1, 1)
-        return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
+        return x * cast(mul, x.dtype).view(shape) + cast(add, x.dtype).view(shape)
 
 
 class Conv2d(nn.Conv2d):
@@ -52,8 +58,8 @@ class Conv2d(nn.Conv2d):
         self.norm = norm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight = self.weight.to(x.dtype)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        weight = cast(self.weight, x.dtype)
+        bias = None if self.bias is None else cast(self.bias, x.dtype)
         if x.device.type == "cpu" and x.dtype == torch.bfloat16:
             bias = None if bias is None else bias.float()
             x = F.conv2d(x.float(), weight.float(), bias, self.stride, self.padding).to(x.dtype)

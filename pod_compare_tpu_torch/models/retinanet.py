@@ -40,11 +40,14 @@ from pod_compare_tpu_torch.models.fpn import FPN, FPN_STRIDES
 from pod_compare_tpu_torch.models.layers import Conv2d
 from pod_compare_tpu_torch.models.resnet import ResNet
 from pod_compare_tpu_torch.ops.anchors import AnchorGenerator
-from pod_compare_tpu_torch.ops.kernels.dropout import dropout, dropout_autograd
+from pod_compare_tpu_torch.ops.kernels.dropout import dropout_autograd, dropout_op
 from pod_compare_tpu_torch.ops.quant import quantized_conv3x3
 from pod_compare_tpu_torch.parallel.mesh import BatchShard
 
 TOWERS = ("cls_subnet", "bbox_subnet")
+# The forward-only dropout of a stochastic pass: the operator, whose seed is
+# a tensor.
+dropout = dropout_op
 HEAD_QUANT_MODES = ("none", "int8")
 
 
@@ -64,21 +67,23 @@ class KernelDropout(TowerDropout):
     levels < l (`level_offsets`). With `batch_shared` the mask of each level
     is one (H, W, C) pattern broadcast over the batch. When autograd records
     the pass, the dropout is differentiable and its backward replays the
-    mask from the seed.
+    mask from the seed. Otherwise it is the operator ``dropout_op``, whose
+    seed stays a tensor: a (2, num_convs) int64 tensor of seeds on the CPU
+    (nested lists are made one) is then an input of an exported program, not
+    a constant baked into it.
     """
 
     def __init__(self, seeds, rate: float, level_offsets: Sequence[int], batch_shared: bool):
-        self.seeds = seeds
+        self.seeds = torch.as_tensor(seeds, dtype=torch.int64)
         self.rate = rate
         self.level_offsets = list(level_offsets)
         self.batch_shared = batch_shared
 
     def __call__(self, x, tower, layer, level):
-        fn = dropout_autograd if torch.is_grad_enabled() and x.requires_grad else dropout
-        return fn(
-            x, int(self.seeds[tower][layer]), self.rate,
-            batch_shared=self.batch_shared, offset=self.level_offsets[level], relu=True,
-        )
+        args = (self.rate, self.batch_shared, self.level_offsets[level], True)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return dropout_autograd(x, int(self.seeds[tower, layer]), *args)
+        return dropout(x, self.seeds[tower, layer], *args)
 
 
 class InjectedMasks(TowerDropout):

@@ -130,12 +130,21 @@ def greedy_sequential_clusters(
     same-class box with IoU >= threshold (clusters may overlap).
 
     The loop runs once per cluster and reads one flag back to the host per
-    step.
+    step. It is the PyTorch operator
+    ``pod_compare_tpu_torch::greedy_sequential_clusters`` on every device,
+    whose outputs have static shapes, so that ``torch.export`` records the
+    loop as one node and its read-backs stay inside it. A device-side loop
+    (ROADMAP A7b) goes in here, in place of the operator's body.
 
     Returns:
         centers: (N,) bool, rows that opened a cluster; members: (N, N)
         bool, members[i] is cluster i's membership where centers[i].
     """
+    return torch.ops.pod_compare_tpu_torch.greedy_sequential_clusters.default(
+        iou_matrix, classes, valid, affinity_threshold)
+
+
+def _greedy_loop(iou_matrix, classes, valid, affinity_threshold):
     affinity = (iou_matrix >= affinity_threshold) & (classes[:, None] == classes[None, :])
     affinity = affinity & valid[None, :] & valid[:, None]
     n = iou_matrix.shape[0]
@@ -150,3 +159,18 @@ def greedy_sequential_clusters(
         claimed |= affinity[i]
         claimed[i] = True
     return centers, affinity & centers[:, None]
+
+
+# Registered through torch.library.Library rather than custom_op, as the
+# dropout operator is (ops/kernels/dropout.py): no torch._dynamo on the call.
+_LIB = torch.library.Library("pod_compare_tpu_torch", "FRAGMENT")
+_LIB.define("greedy_sequential_clusters(Tensor iou_matrix, Tensor classes, Tensor valid, "
+            "float affinity_threshold) -> (Tensor, Tensor)")
+_LIB.impl("greedy_sequential_clusters", _greedy_loop, "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("pod_compare_tpu_torch::greedy_sequential_clusters")
+def _greedy_sequential_clusters_fake(iou_matrix, classes, valid, affinity_threshold):
+    n = iou_matrix.shape[0]
+    return (iou_matrix.new_empty((n,), dtype=torch.bool),
+            iou_matrix.new_empty((n, n), dtype=torch.bool))

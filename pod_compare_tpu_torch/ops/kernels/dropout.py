@@ -24,6 +24,14 @@ stream index follows memory order.
 and CUDA tensors to the kernel; anything else raises. ``dropout_autograd``
 is the differentiable form. ``LAUNCHES`` counts kernel launches, forward
 and backward alike.
+
+``dropout_op`` is the forward registered as the PyTorch operator
+``pod_compare_tpu_torch::dropout``, with the seed as an int64 0-d tensor on
+the CPU: ``torch.export`` records it as one node whose seed is an input of
+the program, as the Mosaic custom call is in the JAX package's StableHLO,
+so every served call draws fresh masks. Its CPU kernel is the plain
+version, its CUDA kernel ``dropout_cuda`` (the seed is read on the host,
+with no device sync), and its fake kernel gives the output's shape.
 """
 
 import ctypes
@@ -255,6 +263,48 @@ def dropout(
     if x.device.type == "cuda":
         return dropout_cuda(x, seed, rate, batch_shared, offset, relu)
     raise ValueError(f"dropout has no path for device {x.device}")
+
+
+# The forward as the PyTorch operator pod_compare_tpu_torch::dropout,
+# registered through torch.library.Library rather than custom_op: custom_op
+# runs its kernels under torch._disable_dynamo, whose first call in a process
+# imports torch._dynamo and whose every call adds host time to the launch.
+_LIB = torch.library.Library("pod_compare_tpu_torch", "FRAGMENT")
+_LIB.define("dropout(Tensor x, Tensor seed, float rate, bool batch_shared=False, "
+            "int offset=0, bool relu=False) -> Tensor")
+
+
+def _dropout_op_cpu(x, seed, rate, batch_shared=False, offset=0, relu=False):
+    return dropout_plain(x, int(seed), rate, batch_shared, offset, relu)
+
+
+def _dropout_op_cuda(x, seed, rate, batch_shared=False, offset=0, relu=False):
+    if seed.device.type != "cpu":
+        raise ValueError(f"dropout_op reads its seed on the host; got one on {seed.device}")
+    return dropout_cuda(x, int(seed), rate, batch_shared, offset, relu)
+
+
+_LIB.impl("dropout", _dropout_op_cpu, "CPU")
+_LIB.impl("dropout", _dropout_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("pod_compare_tpu_torch::dropout")
+def _dropout_op_fake(x, seed, rate, batch_shared=False, offset=0, relu=False):
+    return torch.empty_like(x)
+
+
+def dropout_op(
+    x: torch.Tensor,
+    seed: torch.Tensor,
+    rate: float,
+    batch_shared: bool = False,
+    offset: int = 0,
+    relu: bool = False,
+) -> torch.Tensor:
+    """`dropout` through the operator, its seed an int64 0-d CPU tensor: the
+    plain version for a CPU tensor, the CUDA kernel for a CUDA tensor."""
+    return torch.ops.pod_compare_tpu_torch.dropout.default(x, seed, rate, batch_shared, offset,
+                                                           relu)
 
 
 def dropout_backward(

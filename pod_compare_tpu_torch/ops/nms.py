@@ -22,21 +22,6 @@ class NMSResult(NamedTuple):
     valid: torch.Tensor  # (max_out,) bool
 
 
-def _iou_row(box: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-    """IoU of one box against (N, 4) boxes."""
-    lt = torch.maximum(box[0:2], boxes[:, 0:2])
-    rb = torch.minimum(box[2:4], boxes[:, 2:4])
-    wh = (rb - lt).clamp_min(0.0)
-    inter = wh[:, 0] * wh[:, 1]
-    a1 = (box[2] - box[0]).clamp_min(0.0) * (box[3] - box[1]).clamp_min(0.0)
-    a2 = (boxes[:, 2] - boxes[:, 0]).clamp_min(0.0) * (
-        boxes[:, 3] - boxes[:, 1]
-    ).clamp_min(0.0)
-    union = a1 + a2 - inter
-    ok = union > 0
-    return torch.where(ok, inter / torch.where(ok, union, torch.ones_like(union)), 0.0)
-
-
 def nms(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -53,14 +38,26 @@ def nms(
         max_out: output size.
     """
     cur = torch.where(valid, scores, torch.full_like(scores, _NEG_INF))
+    # The corners and areas of every box, once: a step picks one row of each
+    # and computes the IoU of that box against all, with the same operations
+    # in the same order as one box's row alone. Each step is ~24 operations,
+    # which is what an exported program records for it.
+    lo, hi = boxes[:, 0:2], boxes[:, 2:4]
+    areas = (boxes[:, 2] - boxes[:, 0]).clamp_min(0.0) * (boxes[:, 3] - boxes[:, 1]).clamp_min(0.0)
     indices, oks = [], []
     for _ in range(max_out):
         # One-element index tensors throughout: indexing with a 0-d tensor
         # would read it back to the host at every step.
         idx = torch.argmax(cur).reshape(1)
         ok = cur.index_select(0, idx) > _NEG_INF / 2
-        suppress = _iou_row(boxes.index_select(0, idx)[0], boxes) > iou_threshold
-        cur = torch.where(ok & suppress, _NEG_INF, cur).index_fill(0, idx, _NEG_INF)
+        rb = torch.minimum(hi.index_select(0, idx), hi)
+        lt = torch.maximum(lo.index_select(0, idx), lo)
+        wh = (rb - lt).clamp_min(0.0)
+        inter = wh[:, 0] * wh[:, 1]
+        union = areas.index_select(0, idx) + areas - inter
+        pos = union > 0
+        iou = torch.where(pos, inter / torch.where(pos, union, 1.0), 0.0)
+        cur = torch.where(ok & (iou > iou_threshold), _NEG_INF, cur).index_fill(0, idx, _NEG_INF)
         indices.append(idx)
         oks.append(ok)
     return NMSResult(indices=torch.cat(indices), valid=torch.cat(oks))

@@ -59,7 +59,8 @@ def test_every_module_imports_with_jax_and_its_package_blocked():
                  "evaluation.category_mapping", "evaluation.coco_eval", "evaluation.matching",
                  "evaluation.probabilistic_metrics", "evaluation.scoring", "native",
                  "train.trainer", "utils.profiling", "utils.table", "parallel",
-                 "parallel.mesh", "ops.preprocess"):
+                 "parallel.mesh", "ops.preprocess", "cli.export_model", "inference.export",
+                 "inference.seeds"):
         assert f"pod_compare_tpu_torch.{name}" in modules, name
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, sys
