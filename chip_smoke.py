@@ -4,15 +4,20 @@
     python chip_smoke.py [--seed N] [--profile] [--parent DIR]
 
 Phases, each printing its seconds on its own line as it ends:
-  1. device: the card's name and power limit (nvidia-smi); build both CUDA
-     kernels of csrc/ with nvcc into build/, one nvcc each, started
+  1. device: the card's name and power limit (nvidia-smi); build the three
+     CUDA kernels of csrc/ with nvcc into build/, one nvcc each, started
      together, and print what ptxas reports of them.
   2. kernel: the dropout kernel against its plain PyTorch version at the
      main path's P3 shape, float32 and bfloat16, per-sample and
      batch-shared: bit-identical outputs, keep share inside a binomial band,
      one mask across the batch when shared; kernel, plain and bound times
      (device time of launches replayed from a CUDA graph, on inputs that
-     do not fit in L2 and on one that does).
+     do not fit in L2 and on one that does). Then the normal kernel at the
+     mc_iid flagship's class bank (10, 176580, 7) and box chunk
+     (100, 4540, 4), float32: bit-identical to its plain version run on the
+     card, within 8 ulps of it run on the CPU, the law of its draws; its
+     time (each replayed launch writing a fresh buffer) beside the plain
+     version's, torch.randn's and the bound.
   3. slice: the flagship BayesOD + MC-dropout(10) predictor at full R50-FPN
      width on the 736x1280 BDD canvas, batch 2, random weights from the
      seed: the launch count of one call, finite outputs, PSD covariances,
@@ -89,12 +94,15 @@ Phases, each printing its seconds on its own line as it ends:
      PD covariances, boxes inside the image, a cluster of >= 2 members in
      every image where the mode clusters; ms/batch (median of 5), peak
      memory, head vs core/mode/merge ms, the card's busy share of a traced
-     call, and the greedy merge's clusters and ms. The mc_iid banks held by
-     law on image 0 (standardised errors of the class bank against the
-     exact sigmoid moments, of the sampled box decode against the
-     closed-form moments). Every mode but the sampled one against the CPU
-     at 128x128 in float32, M = 3: detections matched by class and IoU,
-     at most 1% flips, matched values within 1e-3. Then apply_net's main
+     call, and the greedy merge's clusters and ms; the normal kernel's
+     launches of one call (22 on the mc_iid flagship: per image the class
+     bank and 10 box chunks; else 0). The mc_iid banks held by law on image
+     0 (standardised errors of the class bank against the exact sigmoid
+     moments, of the sampled box decode against the closed-form moments).
+     Every mode, the mc_iid flagship too (its normals drawn from the call's
+     seeds on both sides), against the CPU at 128x128 in float32, M = 3:
+     detections matched by class and IoU, at most 1% flips, matched values
+     within 1e-3. Then apply_net's main
      on ensembles_post_nms over 8 of phase 9's PNGs, the five members
      from their random_seed_<seed> sibling checkpoints.
  12. rest: apply_net's main on phase 9's 32 PNGs and checkpoint with
@@ -146,12 +154,15 @@ Phases, each printing its seconds on its own line as it ends:
  14. export: the serving export (inference/export.py) through
      cli.export_model, as a user runs it, from a checkpoint of the seeded,
      tempered flagship weights: the flagship (10 runs, batch 2, 736x1280,
-     bf16) and mc_dropout_ensembles_post_nms cut to 2 runs and batch 1,
-     each exported on the card, saved, then loaded and served by a fresh
-     process in which the port's models, config and predictor (and JAX)
-     cannot be imported, from the generator seed of a live call: every
-     output field bit-identical to the live call's, the dropout kernel
-     launched as often (400 for the flagship); torch.export and
+     bf16), mc_dropout_ensembles_post_nms cut to 2 runs and batch 1, and
+     the flagship with CLS_SAMPLING and BOX_SAMPLING mc_iid (S = 10 and
+     1000) cut to 2 runs and batch 1 (its sampling seeds a fifth input of
+     the program), each exported on the card, saved, then loaded and
+     served by a fresh process in which the port's models, config and
+     predictor (and JAX) cannot be imported, from the generator seed of a
+     live call: every output field bit-identical to the live call's, the
+     dropout and normal kernels launched as often (400 and 0 for the
+     flagship, 80 and 11 for the mc_iid one); torch.export and
      torch.export.save seconds, graph nodes, load seconds, the first served
      call and the median of 5 in ms/batch beside the live predictor's.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
@@ -214,6 +225,7 @@ from pod_compare_tpu_torch.inference import (
     sampled_box_moments,
 )
 from pod_compare_tpu_torch.inference import modes as pmodes
+from pod_compare_tpu_torch.inference.seeds import draw_call_seeds
 from pod_compare_tpu_torch.models import retinanet as pretinanet
 from pod_compare_tpu_torch.models import (
     KernelDropout,
@@ -229,6 +241,7 @@ from pod_compare_tpu_torch.ops.gaussian import covariance_output_to_cholesky
 from pod_compare_tpu_torch.ops.kernels import _build
 from pod_compare_tpu_torch.ops.kernels import dropout as kdropout
 from pod_compare_tpu_torch.ops.kernels import focal as kfocal
+from pod_compare_tpu_torch.ops.kernels import normal as knormal
 from pod_compare_tpu_torch.ops.matcher import label_anchors_batch
 from pod_compare_tpu_torch.ops import quant as pquant
 from pod_compare_tpu_torch.ops.preprocess import resize_and_pad
@@ -284,6 +297,20 @@ NUM_CLASSES = 7
 # element.
 FOCAL_OPS = {"element": (24, 1), "pair": (32, 4), "draw": (22, 3)}
 FOCAL_MAIN = "focal_kernelILi10ELb1ELb1E"  # focal_kernel<10, true, true>, the main path's
+# The least work of the normal function (csrc/normal.cu), counted as
+# FOCAL_OPS is: per Philox block of four normals, the counter's two words
+# and ten rounds of two high and two low multiplies and four xors, with
+# nine key steps of two adds (100); per Box-Muller pair, two uniforms
+# (shift, convert, FMA: 6), log, -2x and sqrt (3), theta (1), sin and cos
+# (2), the two products (2): 14, of which 4 MUFU. 32 instructions and 2
+# MUFU a normal.
+NORMAL_OPS = {"block": (100, 0), "pair": (14, 4)}
+# The normal kernel's shapes on the mc_iid flagship's path: an image's class
+# bank (S = 10, 176,580 anchors, 7 classes) and a box chunk (100 of the
+# 1000 samples of 4,540 candidates, pick_chunk's chunk), whose rows are
+# keyed by the candidates' anchors (of 176,580).
+NORMAL_SHAPES = {"class bank": (10, 176580, 7), "box chunk": (100, 4540, 4)}
+NORMAL_ROWS = 176580
 MAX_GATE_FLIPS = 1e-5  # share of tower gates the GPU and CPU may disagree on
 RESNET_BLOCKS = {"res2": 3, "res3": 4, "res4": 6, "res5": 3}
 
@@ -527,6 +554,89 @@ def check_kernel(seed: int, card: str):
         f"bound {e['bound_ms']:.4f} ms ({card})")
     if err != 0.0:
         raise AssertionError(f"kernel != plain at {EVAL_P3_SHAPE}: {err}")
+    return main
+
+
+def normal_bound_ms(n: int, read_bytes: int = 0) -> dict:
+    """The normal function's bounds for n float32 normals: bytes written
+    (and `read_bytes` read: a row index), instruction issue and MUFU work
+    (NORMAL_OPS), in ms."""
+    blocks = -(-n // 4)
+    instructions = blocks * (NORMAL_OPS["block"][0] + 2 * NORMAL_OPS["pair"][0])
+    mufu = blocks * 2 * NORMAL_OPS["pair"][1]
+    return {"bytes": (4 * n + read_bytes) / HBM_BYTES_PER_S * 1e3,
+            "issue": instructions / INSTRUCTIONS_PER_S * 1e3,
+            "mufu": mufu / MUFU_PER_S * 1e3}
+
+
+def check_normal_kernel(seed: int, card: str) -> dict:
+    """Phase 2, part 2: the normal kernel against its plain version on the
+    card at the mc_iid flagship's class bank and box chunk (its rows keyed
+    by 4,540 anchors of 176,580, pod_normal_rows), float32, bit for
+    bit (both call CUDA's logf, sqrtf, sinf and cosf), and against the plain
+    version on the CPU within 8 ulps (another math library; the differing
+    count printed); the law of the draws; then its time by
+    CUDA-graph replay, each launch writing a fresh buffer (L2-cold), against
+    the plain version's, torch.randn's (another stream, the same law) and
+    the bound. Returns the class bank's numbers, with the box chunk's under
+    "box_chunk"."""
+    like = torch.zeros(1, device="cuda")
+    gen = torch.Generator().manual_seed(seed)
+    anchors = torch.randperm(NORMAL_ROWS, generator=gen)[:NORMAL_SHAPES["box chunk"][1]]
+    records = {}
+    for name, shape in NORMAL_SHAPES.items():
+        n = math.prod(shape)
+        args = (shape, seed * 7919 + 23, 4 * 12345)
+        rows = {} if name == "class bank" else dict(index=anchors.cuda(), rows=NORMAL_ROWS)
+        k = knormal.normal_cuda(*args, like, **rows)
+        p = knormal.normal_plain(*args, torch.float32, "cuda", **rows)
+        torch.cuda.synchronize()
+        if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+            raise AssertionError(f"normal kernel != plain on the card at {shape}: "
+                                 f"{int((k != p).sum())} of {n} differ")
+        err = float((k - p).abs().max())
+        c = knormal.normal_plain(*args, **({} if not rows else dict(index=anchors,
+                                                                    rows=NORMAL_ROWS))).cuda()
+        diff = (k - c).abs()
+        ulp = torch.ldexp(torch.ones_like(k), torch.frexp(torch.maximum(k.abs(), c.abs()))[1] - 24)
+        cpu_ulps = float((diff / ulp).max())
+        cpu_differ = int((k != c).sum())
+        if cpu_ulps > 8:
+            raise AssertionError(f"normal kernel against the CPU's plain version at {shape}: "
+                                 f"{cpu_ulps} ulps")
+        z = k.double()
+        mean, var = float(z.mean()), float(z.var())
+        tail = float((z.abs() > 3).double().mean())
+        if (abs(mean) > 6 / math.sqrt(n) or abs(var - 1) > 6 * math.sqrt(2 / n)
+                or abs(tail - 0.0026998) > 6 * math.sqrt(0.0027 / n)):
+            raise AssertionError(f"normal kernel's law at {shape}: mean {mean}, var {var}, "
+                                 f"share beyond 3 {tail}")
+        del k, p, c, diff, ulp, z
+        keep = []
+        ms = graph_ms([lambda: keep.append(knormal.normal_cuda(*args, like, **rows))], 20)
+        keep.clear()
+        plain_ms = graph_ms([lambda: keep.append(knormal.normal_plain(*args, torch.float32,
+                                                                      "cuda", **rows))], 3)
+        keep.clear()
+        randn_ms = graph_ms([lambda: keep.append(torch.randn(shape, device="cuda"))], 20)
+        keep.clear()
+        torch.cuda.empty_cache()
+        bounds = normal_bound_ms(n, 8 * shape[1] if rows else 0)
+        bound_ms = max(bounds.values())
+        records[name] = dict(
+            shape=list(shape), max_abs_err=err, cpu_max_ulps=cpu_ulps, cpu_differ=cpu_differ,
+            ms=ms, plain_ms=plain_ms, torch_randn_ms=randn_ms, bound_ms=bound_ms,
+            bound_by="bytes" if bounds["bytes"] >= bound_ms else "operations",
+            bytes_bound_ms=bounds["bytes"], issue_bound_ms=bounds["issue"],
+            mufu_bound_ms=bounds["mufu"])
+        log(f"normal kernel {name} {shape} float32: bit-identical to the plain version on the "
+            f"card; against the CPU's {cpu_differ} of {n} differ, at most {cpu_ulps:.1f} ulps; "
+            f"mean {mean:+.5f}, var {var:.5f}, beyond 3 {tail:.6f}; kernel {ms:.4f} ms "
+            f"L2-cold, plain {plain_ms:.4f} ms, torch.randn {randn_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms (bytes {bounds['bytes']:.4f}, issue {bounds['issue']:.4f}, "
+            f"MUFU {bounds['mufu']:.4f}) ({card})")
+    main = records["class bank"]
+    main["box_chunk"] = records["box chunk"]
     return main
 
 
@@ -1755,10 +1865,31 @@ def busy_share(call, device) -> float:
     return busy_ms / wall_ms, wall_ms
 
 
+def normal_launches_per_call(predictor, batch: int) -> int:
+    """The normal kernel's launches in one call: per image, or per (image,
+    run) unit post-NMS, one for a Monte-Carlo class bank and one for each
+    chunk of a Monte-Carlo box bank (`pick_chunk` of the candidates)."""
+    kw = predictor.core_kwargs
+    units = batch * (predictor.num_runs if predictor.post_nms else 1)
+    candidates = sum(min(kw["topk"], n) for n in predictor.level_sizes)
+    per_unit = int(kw["cls_sampling"] != "analytic")
+    if kw["box_sampling"] != "analytic":
+        per_unit += kw["box_num_samples"] // pick_chunk(kw["box_num_samples"], candidates)
+    return units * per_unit
+
+
+def call_sampling_seeds(predictor, seed: int, batch: int) -> torch.Tensor:
+    """The sampling seeds a call with generator `seed` draws
+    (seeds.draw_call_seeds), for the stage API's detect and detect_post_nms."""
+    return draw_call_seeds(torch.Generator().manual_seed(seed), predictor.num_runs,
+                           predictor.num_convs, batch,
+                           predictor.num_runs if predictor.post_nms else 0)[1]
+
+
 def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
     """Phase 11, part 1: every mode at full width on the card. Returns each
-    mode's record (dropout launches of one call, ms/batch, peak memory,
-    stage split, traced busy share, greedy clusters)."""
+    mode's record (dropout and normal launches of one call, ms/batch, peak
+    memory, stage split, traced busy share, greedy clusters)."""
     images = torch.from_numpy(canvases(seed, canvas, BATCH)).to(device)
     sizes = IMAGE_SIZES if canvas == CANVAS else np.array([canvas] * BATCH, np.float32)
     flagship = mode_config(INFER_CFG)
@@ -1775,15 +1906,19 @@ def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
         predictor = mode_predictor(cfg, canvas, tempered, members, device)
         call = lambda s: predictor(images, sizes, sizes, generator=torch.Generator().manual_seed(s))
         expected = per_batch if cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.ENABLE else 0
+        expected_normal = normal_launches_per_call(predictor, BATCH)
         greedy = {"ms": 0.0, "clusters": 0, "calls": 0}
         sync(device)
-        kdropout.LAUNCHES = 0
+        kdropout.LAUNCHES = knormal.LAUNCHES = 0
         with watch_greedy(greedy, device):
             dets = call(seed)
             sync(device)
-        launches = kdropout.LAUNCHES
+        launches, normal_launches = kdropout.LAUNCHES, knormal.LAUNCHES
         if launches != expected:
             raise AssertionError(f"{name}: {launches} dropout launches, expected {expected}")
+        if normal_launches != expected_normal:
+            raise AssertionError(f"{name}: {normal_launches} normal launches, expected "
+                                 f"{expected_normal}")
         n_valid, biggest = check_mode_detections(
             dets, sizes, 2 if name in CLUSTERED else None)
         if predictor.post_nms and greedy["calls"] != BATCH:
@@ -1802,6 +1937,7 @@ def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
         # Stage split of one more call: the head outputs of every run, then
         # the per-image (or per-unit) core, mode, merge and rescale.
         dropout_gen = torch.Generator().manual_seed(seed)
+        sampling_seeds = call_sampling_seeds(predictor, seed, BATCH)
         sync(device)
         t0 = time.perf_counter()
         if predictor.post_nms:
@@ -1812,20 +1948,22 @@ def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
         t1 = time.perf_counter()
         if predictor.post_nms:
             predictor.detect_post_nms(outs, torch.as_tensor(sizes, device=device),
-                                      torch.as_tensor(sizes, device=device))
+                                      torch.as_tensor(sizes, device=device), sampling_seeds)
         else:
             predictor.detect(outs, run_deltas, torch.as_tensor(sizes, device=device),
-                             torch.as_tensor(sizes, device=device))
+                             torch.as_tensor(sizes, device=device), sampling_seeds)
         sync(device)
         t2 = time.perf_counter()
         share, traced_ms = busy_share(lambda: call(seed), device)
         ms = float(np.median(times))
         records[name] = dict(
-            launches=launches, ms=ms, times=times, peak_gib=peak / 2 ** 30,
+            launches=launches, normal_launches=normal_launches, ms=ms, times=times,
+            peak_gib=peak / 2 ** 30,
             head_ms=(t1 - t0) * 1e3, rest_ms=(t2 - t1) * 1e3, busy_share=share,
             traced_ms=traced_ms, valid=n_valid, largest_cluster=biggest,
             greedy_clusters=greedy["clusters"], greedy_ms=greedy["ms"])
-        log(f"modes {name}: {launches} dropout launches (expected {expected}), {n_valid} valid "
+        log(f"modes {name}: {launches} dropout launches (expected {expected}), {normal_launches} "
+            f"normal launches (expected {expected_normal}), {n_valid} valid "
             f"detections, largest cluster {biggest}; {ms:.2f} ms/batch median of "
             f"{[round(t, 2) for t in times]}, head {records[name]['head_ms']:.2f} ms, core/mode/"
             f"merge {records[name]['rest_ms']:.2f} ms, traced call {traced_ms:.2f} ms with the "
@@ -1867,13 +2005,14 @@ def check_sampled_law(predictor, images, seed: int, card: str) -> None:
     against the exact mean and variance of the sigmoid, and the sampled box
     decode (S = 1000, chunked) at the analytic core's candidates against
     the closed-form decode moments; each as standardised errors z, whose
-    mean must be ~0 and spread ~1."""
+    mean must be ~0 and spread ~1. The banks draw from image 0's sampling
+    seed of a call with generator `seed`, as the predictor's call does."""
     kw = predictor.core_kwargs
     outs, _ = predictor.head_outputs(images, torch.Generator().manual_seed(seed))
     cls, var = outs["box_cls"][0], outs["box_cls_var"][0]
-    gen = torch.Generator(device=predictor.device).manual_seed(seed)
+    image_seed = call_sampling_seeds(predictor, seed, images.shape[0])[0]
     s_cls = kw["cls_num_samples"]
-    mc = classification_probs(cls, var, "mc_iid", s_cls, gen).double()
+    mc = classification_probs(cls, var, "mc_iid", s_cls, image_seed).double()
     exact, variance = sigmoid_moments(cls, var)
     se = torch.sqrt(variance / s_cls)
     keep = se > 1e-5  # saturated sigmoids: float32 rounding, not sampling
@@ -1888,8 +2027,10 @@ def check_sampled_law(predictor, images, seed: int, card: str) -> None:
     anchors = predictor.anchors[idx]
     s_box = kw["box_num_samples"]
     chunk = pick_chunk(s_box, idx.shape[0])
-    mean_mc, cov_mc = sampled_box_moments(gen, deltas, chol, anchors, s_box,
-                                          kw["box_reg_weights"])
+    span = knormal.stream_span(math.prod(cls.shape) * s_cls)
+    mean_mc, cov_mc = sampled_box_moments(image_seed, deltas, chol, anchors, s_box,
+                                          kw["box_reg_weights"], offset=span, index=idx,
+                                          rows=predictor.anchors.shape[0])
     mean_a, cov_a = decoded_box_moments(deltas, chol @ chol.transpose(-1, -2), anchors,
                                         kw["box_reg_weights"])
     var_a = torch.diagonal(cov_a, dim1=-2, dim2=-1).double()
@@ -1934,12 +2075,13 @@ def match_detections(gpu, cpu):
 
 
 def check_modes_against_cpu(seed: int, card: str) -> None:
-    """Phase 11, part 2: every mode but the sampled one on the GPU against
-    its plain path on the CPU at 128x128 in float32, M = 3, same weights,
-    masks and members (the CUDA and CPU generators give different normals,
-    so the Monte-Carlo banks are held by law above instead). Detections are
-    matched by class and IoU; the unmatched count as flips, at most 1% of
-    the detections; matched values within 1e-3 of each box's or matrix's
+    """Phase 11, part 2: every mode on the GPU against its plain path on the
+    CPU at 128x128 in float32, M = 3, same weights, masks, members and
+    normals (the mc_iid flagship's banks draw from the call's seeds on both
+    sides, through the normal kernel on the GPU and its plain version on
+    the CPU, within a few ulps of each other). Detections are matched by
+    class and IoU; the unmatched count as flips, at most 1% of the
+    detections; matched values within 1e-3 of each box's or matrix's
     largest entry."""
     opts = ("PARALLEL.COMPUTE_DTYPE", "float32", "PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS", 3)
     size = (128, 128)
@@ -1950,8 +2092,6 @@ def check_modes_against_cpu(seed: int, card: str) -> None:
     members = ensemble_members(flagship, sd, images[:1], "cpu")
     summary = []
     for name, infer, extra in MODE_CASES:
-        if "mc_iid" in name:
-            continue
         cfg = mode_config(infer, tuple(opts) + tuple(extra))
         summary.append(gpu_against_cpu(name, cfg, size, images, tempered, members, seed))
     log("modes reference (GPU vs CPU, 128x128 float32, max relative error): "
@@ -3063,11 +3203,18 @@ EXPORT_TIMED_CALLS = 5
 # at batch 2 its 17,507-node program took 57 s to export and 23 s to load.
 EXPORT_POST_NMS = ("Inference/mc_dropout_ensembles_post_nms.yaml",
                    ["PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS", "2"], 1)
+# The flagship with both Monte-Carlo banks mc_iid (S = 10 and 1000), cut to
+# 2 MC runs (from 10) and batch 1 so that its program (about half the
+# flagship's nodes) fits the smoke's time: 11 normal launches (the class
+# bank and 10 box chunks of 100) and 80 dropout launches a served call.
+EXPORT_MC_IID = (INFER_CFG, ["PROBABILISTIC_INFERENCE.CLS_SAMPLING", "mc_iid",
+                             "PROBABILISTIC_INFERENCE.BOX_SAMPLING", "mc_iid",
+                             "PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS", "2"], 1)
 # A fresh process that serves one artifact with the model code unimportable:
 # argv is the device, the images (.npy), their (h, w) sizes (json), the
 # generator seed, the timed calls, the file for the first call's outputs and
 # the artifact. It prints one json line: load seconds, first call ms, its
-# dropout launches, the timed calls' ms.
+# dropout and normal launches, the timed calls' ms.
 SERVE_SCRIPT = r"""
 import importlib.abc, json, statistics, sys, time
 
@@ -3087,6 +3234,7 @@ import numpy as np
 import torch
 from pod_compare_tpu_torch.inference.export import load_artifact
 from pod_compare_tpu_torch.ops.kernels import dropout as kd
+from pod_compare_tpu_torch.ops.kernels import normal as kn
 
 device, images_path, sizes, seed, calls, out_path, artifact = sys.argv[1:]
 images = torch.from_numpy(np.load(images_path)).to(device)
@@ -3097,12 +3245,12 @@ served = load_artifact(artifact)
 load_s = time.perf_counter() - t0
 call = lambda s: served(images, sizes, sizes, torch.Generator().manual_seed(s))
 sync()
-kd.LAUNCHES = 0
+kd.LAUNCHES = kn.LAUNCHES = 0
 t0 = time.perf_counter()
 dets = call(seed)
 sync()
 first_ms = (time.perf_counter() - t0) * 1e3
-launches = kd.LAUNCHES
+launches, normal_launches = kd.LAUNCHES, kn.LAUNCHES
 torch.save(tuple(None if f is None else f.cpu() for f in dets), out_path)
 times = []
 for i in range(calls):
@@ -3114,7 +3262,8 @@ for i in range(calls):
 leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
 print(json.dumps(dict(load_s=load_s, first_ms=first_ms, launches=launches,
-                      ms=statistics.median(times), times=times)))
+                      normal_launches=normal_launches, ms=statistics.median(times),
+                      times=times)))
 """
 
 
@@ -3167,7 +3316,8 @@ def run_export(seed: int, card: str, work: str, device="cuda", canvas=CANVAS) ->
                            os.path.splitext(os.path.basename(TRAIN_CFG))[0], f"random_seed_{seed}")
     Checkpointer(out_dir).save(0, {"model": {k: v.cpu() for k, v in tempered.items()}})
     repo = os.path.dirname(os.path.abspath(__file__))
-    cases = {"flagship": (INFER_CFG, [], BATCH), "post_nms": EXPORT_POST_NMS}
+    cases = {"flagship": (INFER_CFG, [], BATCH), "post_nms": EXPORT_POST_NMS,
+             "mc_iid": EXPORT_MC_IID}
     records, live, serving = {}, {}, {}
     try:
         for name, (infer, opts, batch) in cases.items():
@@ -3181,14 +3331,16 @@ def run_export(seed: int, card: str, work: str, device="cuda", canvas=CANVAS) ->
             predictor = build_predictor(cfg, canvas, tempered, device=device)
             call = lambda s: predictor(images, sizes, sizes,
                                        generator=torch.Generator().manual_seed(s))
+            expected_normal = normal_launches_per_call(predictor, batch)
             sync(device)
-            kdropout.LAUNCHES = 0
+            kdropout.LAUNCHES = knormal.LAUNCHES = 0
             dets = call(seed)
             sync(device)
-            launches = kdropout.LAUNCHES
-            if launches != expected:
-                raise AssertionError(f"export {name}: {launches} live dropout launches, "
-                                     f"expected {expected}")
+            launches, normal_launches = kdropout.LAUNCHES, knormal.LAUNCHES
+            if (launches, normal_launches) != (expected, expected_normal):
+                raise AssertionError(f"export {name}: {launches} live dropout and "
+                                     f"{normal_launches} normal launches, expected "
+                                     f"{expected} and {expected_normal}")
             live[name] = tuple(None if f is None else f.cpu() for f in dets)
             times = []
             for i in range(EXPORT_TIMED_CALLS):
@@ -3220,11 +3372,13 @@ def run_export(seed: int, card: str, work: str, device="cuda", canvas=CANVAS) ->
                     stderr=log_file, text=True)
             records[name] = dict(
                 runs=runs, batch=batch, live_launches=launches, expected=expected,
+                live_normal_launches=normal_launches, expected_normal=expected_normal,
                 live_ms=float(np.median(times)), live_times=times, cli_s=cli_s,
                 export_s=manifest["export_seconds"], save_s=manifest["save_seconds"],
                 graph_nodes=manifest["graph_nodes"], served_path=served_path,
                 bytes=os.path.getsize(os.path.join(args.output_dir, "pipeline.pt2")))
-            log(f"export {name}: {runs} runs, batch {batch}, {launches} live dropout launches, "
+            log(f"export {name}: {runs} runs, batch {batch}, {launches} live dropout and "
+                f"{normal_launches} live normal launches, "
                 f"live {records[name]['live_ms']:.2f} ms/batch median of "
                 f"{[round(t, 2) for t in times]}; cli.export_model {cli_s:.2f} s (torch.export "
                 f"{manifest['export_seconds']:.2f} s, {manifest['graph_nodes']} graph nodes; "
@@ -3250,12 +3404,15 @@ def run_export(seed: int, card: str, work: str, device="cuda", canvas=CANVAS) ->
                   if not same_bits(a, b)]
         if differ:
             raise AssertionError(f"export {name}: served {differ} differ from the live call's")
-        if rec["served_launches"] != rec["live_launches"]:
-            raise AssertionError(f"export {name}: {rec['served_launches']} served dropout "
-                                 f"launches, live {rec['live_launches']}")
+        if (rec["served_launches"], rec["served_normal_launches"]) != (
+                rec["live_launches"], rec["live_normal_launches"]):
+            raise AssertionError(f"export {name}: {rec['served_launches']} served dropout and "
+                                 f"{rec['served_normal_launches']} normal launches, live "
+                                 f"{rec['live_launches']} and {rec['live_normal_launches']}")
         log(f"export {name}: served by a process without the model code: {fields} "
             f"bit-identical to the live call, {rec['served_launches']} dropout launches "
-            f"(expected {rec['expected']}); load {rec['served_load_s']:.2f} s, first call "
+            f"(expected {rec['expected']}), {rec['served_normal_launches']} normal launches "
+            f"(expected {rec['expected_normal']}); load {rec['served_load_s']:.2f} s, first call "
             f"{rec['served_first_ms']:.2f} ms, {rec['served_ms']:.2f} ms/batch median of "
             f"{[round(t, 2) for t in rec['served_times']]} beside live {rec['live_ms']:.2f} "
             f"ms/batch ({card})")
@@ -3300,11 +3457,13 @@ def main() -> int:
         _build.load(source)
     native_build.join()
     native.load()
-    phase("device (nvcc of csrc/dropout.cu and csrc/focal.cu, g++ of native/, in parallel)", t0)
+    phase("device (nvcc of csrc/dropout.cu, csrc/focal.cu and csrc/normal.cu, g++ of native/, "
+          "in parallel)", t0)
 
     t0 = time.perf_counter()
     k1 = check_kernel(args.seed, card)
-    phase("kernel", t0)
+    k3 = check_normal_kernel(args.seed, card)
+    phase("kernel (dropout and normal)", t0)
 
     t0 = time.perf_counter()
     launches = run_slice(args.seed, card)
@@ -3450,6 +3609,31 @@ def main() -> int:
         "parallel_train_net_launches": [n[1] for n in parallel["train_net_2_ranks"]],
         "index_base_bit_identical": k2["index_base_bit_identical"],
         "parent_bit_identical": k2["parent_bit_identical"],
+    }, {
+        "name": "normal",
+        "route": "cuda",
+        "source": "pod_compare_tpu_torch/csrc/normal.cu",
+        "replaces": "none: jax.random.normal (XLA threefry) in "
+                    "pod_compare_tpu/inference/core.py, outside any Pallas kernel",
+        "launches": export["mc_iid"]["served_normal_launches"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,
+        "torch_randn_ms": k3["torch_randn_ms"],
+        "bytes_bound_ms": k3["bytes_bound_ms"],
+        "issue_bound_ms": k3["issue_bound_ms"],
+        "mufu_bound_ms": k3["mufu_bound_ms"],
+        "cpu_max_ulps": k3["cpu_max_ulps"],
+        "cpu_differ": k3["cpu_differ"],
+        "shape": k3["shape"],
+        "dtype": "float32",
+        "box_chunk": k3["box_chunk"],
+        "export_live_launches": export["mc_iid"]["live_normal_launches"],
+        "export_dropout_launches": export["mc_iid"]["served_launches"],
+        "modes_launches": {name: rec["normal_launches"] for name, rec in modes.items()},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -39,28 +39,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "counter_rng.cuh"
+
 namespace {
-
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += kPhiloxW0;
-      k.y += kPhiloxW1;
-    }
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-    const uint32_t lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-    const uint32_t lo1 = kPhiloxM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
 
 __device__ __forceinline__ float apply(float v, bool keep, bool relu, float scale) {
   if (relu) v = v > 0.f ? v : 0.f;
@@ -106,9 +87,8 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
 __device__ __forceinline__ void keep8(uint64_t offset, int64_t c, uint2 key, uint32_t thresh,
                                       bool* keep) {
   const uint64_t q = (offset >> 2) + 2 * (uint64_t)c;
-  const uint4 r0 = philox4x32_10(make_uint4((uint32_t)q, (uint32_t)(q >> 32), 0u, 0u), key);
-  const uint4 r1 =
-      philox4x32_10(make_uint4((uint32_t)(q + 1), (uint32_t)((q + 1) >> 32), 0u, 0u), key);
+  const uint4 r0 = philox_block(q, key);
+  const uint4 r1 = philox_block(q + 1, key);
   const uint32_t bits[8] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
 #pragma unroll
   for (int k = 0; k < 8; ++k) keep[k] = bits[k] < thresh;
@@ -182,7 +162,7 @@ extern "C" int pod_dropout_forward(const void* x, void* out, int dtype, long lon
   if (inner <= 0 || outer <= 0 || inner % 8 != 0 || offset % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  const uint2 key = philox_key(seed);
   const int threads = 256;
   const int blocks = grid_for(inner, threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -211,7 +191,7 @@ extern "C" int pod_dropout_backward(const void* g, const void* gate, void* out, 
       (relu && gate == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const uint2 key = make_uint2((uint32_t)seed, (uint32_t)(seed >> 32));
+  const uint2 key = philox_key(seed);
   const int threads = 256;
   const int blocks = grid_for(inner, threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

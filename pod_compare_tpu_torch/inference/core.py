@@ -11,10 +11,17 @@ class probabilities, closed-form decode moments; no random numbers),
 ``mc_iid`` (the reference's semantics: iid normals per anchor and class,
 per candidate and sample) and ``mc_shared`` (one bank of normals shared
 across anchors or candidates: the same marginal law per anchor). The
-Monte-Carlo banks draw from a ``torch.Generator`` on the tensors' device;
-their bits differ from the JAX package's threefry bits, their law does not.
+Monte-Carlo banks draw their normals from a seed, an int64 0-d CPU tensor
+(an input of an exported program, ``inference/export.py``), through the
+counter-based operator ``pod_compare_tpu_torch::normal``
+(``ops/kernels/normal.py``): one stream per image, or per (image, run) unit
+on the post-NMS paths, whose regions the banks take in turn
+(`probabilistic_inference_core`); a candidate's box normals are keyed by
+its anchor, not by its rank. Their bits differ from the JAX package's
+threefry bits, their law does not.
 """
 
+import math
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -31,6 +38,7 @@ from pod_compare_tpu_torch.ops.gaussian import (
     mvn_sample,
     sample_mean_covariance,
 )
+from pod_compare_tpu_torch.ops.kernels.normal import normal, stream_span
 
 
 class Detections(NamedTuple):
@@ -84,8 +92,19 @@ BOX_SAMPLE_CHUNK_ELEMS = 1 << 21
 SAMPLING_IMPLS = ("analytic", "mc_iid", "mc_shared")
 
 
-def _normal(generator: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
-    return torch.randn(tuple(shape), generator=generator, dtype=like.dtype, device=like.device)
+def _seed(seed) -> torch.Tensor:
+    if seed is None:
+        raise ValueError("the Monte-Carlo sampling impls need a seed "
+                         "(seeds.draw_call_seeds draws one per image or unit)")
+    return seed
+
+
+def class_bank_shape(impl: str, num_samples: int, logits_shape) -> tuple:
+    """Shape of the class bank's normals: (S,) + logits' shape for 'mc_iid',
+    (S, 1, ..., K) for 'mc_shared'."""
+    if impl == "mc_shared":
+        return (num_samples,) + (1,) * (len(logits_shape) - 1) + tuple(logits_shape[-1:])
+    return (num_samples,) + tuple(logits_shape)
 
 
 def classification_probs(
@@ -93,25 +112,24 @@ def classification_probs(
     box_cls_var: Optional[torch.Tensor],
     impl: str = "analytic",
     num_samples: int = 0,
-    generator: Optional[torch.Generator] = None,
+    seed=None,
+    offset: int = 0,
 ) -> torch.Tensor:
     """Mean sigmoid probability under the logit Gaussian N(logit, exp(var)).
 
     impl 'analytic': 32-node Gauss-Hermite quadrature (the S -> inf limit
     of both banks); 'mc_iid': the mean over `num_samples` iid normals per
-    (anchor, class); 'mc_shared': one (S, 1, K) bank shared across anchors.
-    Without a variance head, the sigmoid."""
+    (anchor, class); 'mc_shared': one (S, 1, K) bank shared across anchors;
+    the banks' normals are the stream indices from `offset` of `seed` (an
+    int64 0-d CPU tensor or an int). Without a variance head, the sigmoid."""
     if box_cls_var is None:
         return torch.sigmoid(box_cls)
     if impl not in SAMPLING_IMPLS:
         raise ValueError(f"Invalid CLS_SAMPLING {impl!r}")
     std = torch.sqrt(torch.exp(box_cls_var))
     if impl != "analytic":
-        if impl == "mc_shared":
-            shape = (num_samples,) + (1,) * (box_cls.dim() - 1) + tuple(box_cls.shape[-1:])
-        else:
-            shape = (num_samples,) + tuple(box_cls.shape)
-        noise = _normal(generator, shape, box_cls)
+        noise = normal(_seed(seed), class_bank_shape(impl, num_samples, box_cls.shape), box_cls,
+                       offset)
         return torch.sigmoid(box_cls[None] + noise * std[None]).mean(dim=0)
     nodes, weights = np.polynomial.hermite.hermgauss(32)
     nodes = torch.as_tensor(np.sqrt(2.0) * nodes, dtype=box_cls.dtype, device=box_cls.device)
@@ -161,30 +179,42 @@ def pick_chunk(num_samples: int, num_candidates: int) -> int:
 
 
 def sampled_box_moments(
-    generator: torch.Generator,
+    seed,
     deltas: torch.Tensor,
     chol: torch.Tensor,
     anchors: torch.Tensor,
     num_samples: int,
     weights=(1.0, 1.0, 1.0, 1.0),
     shared: bool = False,
+    offset: int = 0,
+    index: Optional[torch.Tensor] = None,
+    rows: int = 0,
 ):
     """Mean and unbiased (divisor S-1) covariance of the boxes decoded from
     `num_samples` delta samples deltas + L z per candidate, drawn in chunks
     (`pick_chunk`). Residuals are summed against the deterministic decode,
-    so the sums stay small in float32. With `shared`, every candidate uses
-    the same (chunk, 4) normals. (C, 4), (C, 4, 4) -> (C, 4), (C, 4, 4)."""
+    so the sums stay small in float32. The normals come from the stream of
+    `seed` from `offset`: sample s of candidate c takes row index[c] of an
+    (S, rows, 4) bank (`index`: the candidates' anchors, `rows` the anchor
+    count; default: the candidates' positions), so a candidate's normals
+    follow its anchor and not its rank, and chunking does not change them.
+    With `shared`, every candidate uses the same (S, 4) normals.
+    (C, 4), (C, 4, 4) -> (C, 4), (C, 4, 4)."""
+    seed = _seed(seed)
     num_cand = deltas.shape[0]
     chunk = pick_chunk(num_samples, num_cand)
+    if index is None:
+        index, rows = torch.arange(num_cand, device=deltas.device), num_cand
+    span = stream_span(chunk * 4 * (1 if shared else rows))
     center = decode_deltas(deltas, anchors, weights)
     resid_sum = torch.zeros_like(center)
     outer_sum = center.new_zeros((num_cand, 4, 4))
-    for _ in range(num_samples // chunk):
+    for k in range(num_samples // chunk):
         if shared:
-            z = _normal(generator, (chunk, 4), deltas)
+            z = normal(seed, (chunk, 4), deltas, offset + k * span)
             samples = deltas[None] + torch.einsum("cij,sj->sci", chol, z)
         else:
-            samples = mvn_sample(generator, deltas, chol, chunk)
+            samples = mvn_sample(seed, deltas, chol, chunk, offset + k * span, index, rows)
         resid = decode_delta_samples(samples, anchors, weights) - center[None]
         resid_sum = resid_sum + resid.sum(dim=0)
         outer_sum = outer_sum + torch.einsum("sci,scj->cij", resid, resid)
@@ -210,7 +240,7 @@ def probabilistic_inference_core(
     box_sampling: str = "analytic",
     cls_num_samples: int = 0,
     box_num_samples: int = 0,
-    generator: Optional[torch.Generator] = None,
+    seed=None,
     defer_covariance: bool = False,
 ) -> Candidates:
     """Single-image anchorwise probabilistic inference.
@@ -225,17 +255,21 @@ def probabilistic_inference_core(
         topk: candidates per level; level_sizes: per-level anchor counts.
         cls_sampling/box_sampling: 'analytic', 'mc_iid' or 'mc_shared'
             (`classification_probs`, `sampled_box_moments`), with
-            cls_num_samples/box_num_samples draws from `generator`, a
-            generator on the tensors' device (the class bank is drawn
-            first, then the box bank).
+            cls_num_samples/box_num_samples draws from the stream of
+            `seed`, an int64 0-d CPU tensor (or an int): the class bank
+            from stream index 0, then the box bank, rounded up to a whole
+            Philox block (`stream_span`); the box bank's rows are keyed by
+            the candidates' anchors (`sampled_box_moments`).
         defer_covariance: compute only the analytic decode means (for
             NMS-first paths that rebuild covariances of the survivors
             through `deferred_covariance`).
     """
     if box_sampling not in SAMPLING_IMPLS:
         raise ValueError(f"Invalid BOX_SAMPLING {box_sampling!r}")
-    probs = classification_probs(box_cls, box_cls_var, cls_sampling, cls_num_samples,
-                                 generator)
+    probs = classification_probs(box_cls, box_cls_var, cls_sampling, cls_num_samples, seed)
+    cls_drawn = box_cls_var is not None and cls_sampling != "analytic"
+    cls_span = stream_span(math.prod(class_bank_shape(
+        cls_sampling, cls_num_samples, box_cls.shape))) if cls_drawn else 0
     scores_all = probs.amax(dim=1)
     classes_all = probs.argmax(dim=1)  # ties to the lower class, as jnp.argmax
     top_scores, top_idx = topk_candidates(scores_all, topk, level_sizes)
@@ -266,8 +300,9 @@ def probabilistic_inference_core(
                                               box_reg_weights)
         else:
             boxes, covs = sampled_box_moments(
-                generator, sel_deltas, chol, sel_anchors, box_num_samples, box_reg_weights,
-                shared=box_sampling == "mc_shared",
+                seed, sel_deltas, chol, sel_anchors, box_num_samples, box_reg_weights,
+                shared=box_sampling == "mc_shared", offset=cls_span, index=top_idx,
+                rows=anchors.shape[0],
             )
         if epistemic_cov is not None:
             covs = covs + epistemic_cov

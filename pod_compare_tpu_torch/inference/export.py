@@ -5,11 +5,13 @@ captures the predictor's forward (``predictor.PipelineModule``: uint8
 canvas -> normalize -> R50-FPN -> the head bank -> the candidate core -> the
 mode or the post-NMS merge -> rescale) once, at export time, and
 ``torch.export.save`` writes it with its weights. The serving host needs
-torch and this package's two operators, ``pod_compare_tpu_torch::dropout``
-(the dropout kernel of ``csrc/dropout.cu`` on CUDA) and
+torch and this package's three operators, ``pod_compare_tpu_torch::dropout``
+(the dropout kernel of ``csrc/dropout.cu`` on CUDA),
+``pod_compare_tpu_torch::normal`` (the normals of the Monte-Carlo sampling
+impls, ``csrc/normal.cu`` on CUDA) and
 ``pod_compare_tpu_torch::greedy_sequential_clusters`` (the post-NMS merge's
-loop), which importing this module registers; the kernel is built at its
-first launch. It needs no config, no model code, no predictor and no
+loop), which importing this module registers; the kernels are built at
+their first launch. It needs no config, no model code, no predictor and no
 retrace.
 
 Artifact layout (a directory):
@@ -19,19 +21,21 @@ Artifact layout (a directory):
 
 The program takes (images (B, H, W, 3) uint8 on the device, input_sizes and
 output_sizes (B, 2) float32 on the device, dropout_seeds (M, 2, num_convs)
-int64 on the CPU) and returns the `Detections` fields that are not None, as
-a plain tuple, in the order of `manifest["detections_fields"]`. The seeds
-are an input, so every served call draws fresh masks: `ServingPredictor`
-draws them from its generator as the live predictor does
-(``seeds.draw_call_seeds``), and the two agree bit for bit.
+int64 on the CPU) and, when CLS_SAMPLING or BOX_SAMPLING is a Monte-Carlo
+impl, a fifth input, sampling_seeds (B,) or, on the post-NMS paths, (B, M)
+int64 on the CPU (`manifest["sampling_seeds_shape"]`; null for an analytic
+program, which keeps four inputs). It returns the `Detections` fields that
+are not None, as a plain tuple, in the order of
+`manifest["detections_fields"]`. The seeds are inputs, so every served call
+draws fresh masks and normals: `ServingPredictor` draws them from its
+generator as the live predictor does (``seeds.draw_call_seeds``), and the
+two agree bit for bit.
 
 An ExportedProgram is made for one device, where the JAX artifact may carry
 the lowerings of several platforms: a program exported for CUDA is served
-on CUDA, and nowhere else. Two things are refused: members placed on more
-than one device (export the single-device pipeline and serve several cards
-by copying the artifact) and the Monte-Carlo sampling impls, which draw
-from ``torch.Generator``s that a program cannot take as inputs (ROADMAP
-C2c).
+on CUDA, and nowhere else. Members placed on more than one device are
+refused: export the single-device pipeline and serve several cards by
+copying the artifact.
 
 Use ``pod_compare_tpu_torch.cli.export_model`` to write one from a trained
 checkpoint, and `load_artifact` to serve from it.
@@ -48,12 +52,14 @@ from torch import nn
 # The operators the program calls: importing their modules registers them.
 from pod_compare_tpu_torch.ops import fusion as _fusion  # noqa: F401
 from pod_compare_tpu_torch.ops.kernels import dropout as _dropout  # noqa: F401
+from pod_compare_tpu_torch.ops.kernels import normal as _normal  # noqa: F401
 from pod_compare_tpu_torch.inference.core import Detections
 from pod_compare_tpu_torch.inference.seeds import draw_call_seeds
 
 FORMAT = "pod_compare_tpu_torch.serving/1"
 REQUIRED_OPS = ("pod_compare_tpu_torch::dropout",
-                "pod_compare_tpu_torch::greedy_sequential_clusters")
+                "pod_compare_tpu_torch::greedy_sequential_clusters",
+                "pod_compare_tpu_torch::normal")
 _PIPELINE_FILE = "pipeline.pt2"
 _MANIFEST_FILE = "manifest.json"
 
@@ -67,22 +73,27 @@ class _Serving(nn.Module):
         self.pipeline = pipeline
         self.fields = fields
 
-    def forward(self, images, input_sizes, output_sizes, dropout_seeds):
-        dets = self.pipeline(images, input_sizes, output_sizes, dropout_seeds)
+    def forward(self, images, input_sizes, output_sizes, dropout_seeds, sampling_seeds=None):
+        dets = self.pipeline(images, input_sizes, output_sizes, dropout_seeds, sampling_seeds)
         self.fields[:] = [name for name, f in zip(Detections._fields, dets) if f is not None]
         return tuple(f for f in dets if f is not None)
 
 
 def _example_inputs(pipeline, batch_size: int):
+    """The program's inputs: four, and sampling_seeds where the pipeline
+    samples."""
     h, w = pipeline.image_size
     device = pipeline.device
     sizes = lambda: torch.tensor([[h, w]] * batch_size, dtype=torch.float32, device=device)
-    return (
+    inputs = (
         torch.zeros((batch_size, h, w, 3), dtype=torch.uint8, device=device),
         sizes(),
         sizes(),
         torch.zeros((pipeline.num_runs, 2, pipeline.num_convs), dtype=torch.int64),
     )
+    if pipeline.sampled:
+        inputs += (torch.zeros(pipeline.sampling_seeds_shape(batch_size), dtype=torch.int64),)
+    return inputs
 
 
 def _export(predictor, batch_size: int, device=None):
@@ -93,13 +104,6 @@ def _export(predictor, batch_size: int, device=None):
             f"export_predictor captures one device's pipeline, and these members are placed "
             f"on {sorted(set(map(str, pipeline.member_devices)))}: export the single-device "
             f"pipeline; serve several cards by copying the artifact"
-        )
-    if pipeline.sampled:
-        kw = pipeline.core_kwargs
-        raise ValueError(
-            f"CLS_SAMPLING {kw['cls_sampling']!r} / BOX_SAMPLING {kw['box_sampling']!r} draw "
-            f"from torch.Generators, which an exported program cannot take as inputs; the "
-            f"export of the sampled impls is ROADMAP C2c, and 'analytic' exports"
         )
     if device is not None and torch.device(device) != pipeline.device:
         raise ValueError(f"the predictor runs on {pipeline.device}, not on {device}: "
@@ -139,6 +143,8 @@ def save_artifact(predictor, out_dir: str, batch_size: int, device=None,
         "mc_runs": pipeline.num_runs if pipeline.mc_enabled else 0,
         "num_convs": pipeline.num_convs,
         "detections_fields": fields,
+        "sampling_seeds_shape": (list(pipeline.sampling_seeds_shape(batch_size))
+                                 if pipeline.sampled else None),
         "required_ops": list(REQUIRED_OPS),
         "torch_version": torch.__version__,
         "num_params": sum(p.numel() for p in pipeline.parameters()),
@@ -164,7 +170,8 @@ class ServingPredictor:
     """Runs inference from a saved artifact: no model code, no configs.
 
     Called as the live predictor is, with a CPU `generator` (default: seeded
-    with 0) from which it draws the call's dropout seeds. An artifact
+    with 0) from which it draws the call's dropout seeds and, for a program
+    that samples, its sampling seeds. An artifact
     exported for CUDA raises on a machine without CUDA; on CUDA the
     constructor turns TF32 off process-wide, as the live predictor's does."""
 
@@ -189,16 +196,23 @@ class ServingPredictor:
         self.image_size = tuple(self.manifest["image_size"])
         self.fields = list(self.manifest["detections_fields"])
         self._seed_shape = (self.manifest["mc_runs"] or 1, self.manifest["num_convs"])
+        # Absent from artifacts written before the sampled impls exported:
+        # those programs take four inputs.
+        sampling = self.manifest.get("sampling_seeds_shape")
+        self._samples = sampling is not None
+        self._unit_runs = sampling[1] if self._samples and len(sampling) > 1 else 0
 
     def __call__(self, images, input_sizes, output_sizes,
                  generator: Optional[torch.Generator] = None) -> Detections:
         """Run the exported pipeline on one padded batch (the arguments of
         `ProbabilisticPredictor.__call__`)."""
-        dropout_seeds, _ = draw_call_seeds(generator, *self._seed_shape)
+        dropout_seeds, sampling_seeds = draw_call_seeds(generator, *self._seed_shape,
+                                                        self.batch_size, self._unit_runs)
+        seeds = (dropout_seeds, sampling_seeds) if self._samples else (dropout_seeds,)
         images = torch.as_tensor(images).to(self.device, non_blocking=True)
         sizes = lambda s: torch.as_tensor(s, dtype=torch.float32, device=self.device)
         with torch.no_grad():
-            out = self._call(images, sizes(input_sizes), sizes(output_sizes), dropout_seeds)
+            out = self._call(images, sizes(input_sizes), sizes(output_sizes), *seeds)
         return Detections(**dict(zip(self.fields, out)))
 
 

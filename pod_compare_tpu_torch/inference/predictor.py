@@ -68,8 +68,10 @@ class PipelineModule(nn.Module):
     `member_devices` gives each member's device (the images are copied to
     it and its outputs back to `device`); `dropout_seeds` is the (M, 2,
     num_convs) int64 CPU tensor of `seeds.draw_call_seeds`, read only by an
-    MC bank; `sampling_generator` seeds the Monte-Carlo sampling impls
-    (`_generators`) and is the one argument an export cannot take.
+    MC bank; `sampling_seeds`, its (B,) or, on the post-NMS paths, (B, M)
+    int64 CPU tensor, seeds the Monte-Carlo sampling impls, one stream per
+    image or (image, run) unit (`sampling_seeds_shape`), and is read only
+    when they are on (`sampled`).
     """
 
     def __init__(self, cfg, image_size: Sequence[int], models, device: torch.device,
@@ -208,25 +210,24 @@ class PipelineModule(nn.Module):
         # standard_nms, and the pre-NMS MC-dropout and ensemble merges
         return M.standard_nms(cands, self.nms_thresh, self.max_dets)
 
-    def _generators(self, generator: Optional[torch.Generator], batch: int, runs: int = 0):
-        """Sampling generators on the device, one per image (or per (image,
-        run) when `runs`), seeded from the CPU `generator` (default: seeded
-        with 0): image b's seed, then for post-NMS units M seeds drawn from
-        it, as the JAX package splits each image's key into M. Nones when
-        nothing is sampled."""
+    def sampling_seeds_shape(self, batch: int) -> tuple:
+        """Shape of a call's `sampling_seeds`: one seed per image, (batch,),
+        or per (image, run) unit on the post-NMS paths, (batch, M)."""
+        return (batch, self.num_runs) if self.post_nms else (batch,)
+
+    def _sampling_seeds(self, sampling_seeds: Optional[torch.Tensor], batch: int):
+        """`sampling_seeds` checked against the call, or None when nothing
+        is sampled (an analytic call reads no seed)."""
         if not self.sampled:
-            return [[None] * runs if runs else None for _ in range(batch)]
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        device_gen = lambda s: torch.Generator(device=self.device).manual_seed(s)
-        gens = []
-        for seed in draw_seeds(generator, (batch,)).tolist():
-            if runs:
-                unit_seeds = draw_seeds(torch.Generator().manual_seed(seed), (runs,)).tolist()
-                gens.append([device_gen(s) for s in unit_seeds])
-            else:
-                gens.append(device_gen(seed))
-        return gens
+            return None
+        want = self.sampling_seeds_shape(batch)
+        if sampling_seeds is None or tuple(sampling_seeds.shape) != want:
+            raise ValueError(
+                f"CLS_SAMPLING {self.core_kwargs['cls_sampling']!r} / BOX_SAMPLING "
+                f"{self.core_kwargs['box_sampling']!r} need sampling_seeds of shape {want} "
+                f"(seeds.draw_call_seeds), got "
+                f"{None if sampling_seeds is None else tuple(sampling_seeds.shape)}")
+        return sampling_seeds
 
     def _rescale(self, dets, b, input_sizes, output_sizes):
         return detector_postprocess(
@@ -235,17 +236,18 @@ class PipelineModule(nn.Module):
 
     @torch.no_grad()
     def detect(self, outs, run_deltas, input_sizes, output_sizes,
-               generator: Optional[torch.Generator] = None) -> Detections:
+               sampling_seeds: Optional[torch.Tensor] = None) -> Detections:
         """Pre-NMS modes: per-image candidate core, mode and rescale on the
-        (mean) outputs of `head_outputs`; batched Detections. `generator`
-        seeds the sampling generators (`_generators`)."""
+        (mean) outputs of `head_outputs`; batched Detections. Image b's
+        Monte-Carlo banks draw from `sampling_seeds[b]` (the (B,) seeds of
+        `seeds.draw_call_seeds`; needed only by the sampled impls)."""
         defer = (
             run_deltas is None
             and self.mode == "standard_nms"
             and self.core_kwargs["box_sampling"] == "analytic"
         )
         batch = outs["box_cls"].shape[0]
-        gens = self._generators(generator, batch)
+        seeds = self._sampling_seeds(sampling_seeds, batch)
         per_image = []
         for b in range(batch):
             pick = lambda t: None if t is None else t[b]
@@ -253,7 +255,8 @@ class PipelineModule(nn.Module):
                 self.anchors, outs["box_cls"][b], outs["box_delta"][b],
                 pick(outs["box_cls_var"]), pick(outs["box_reg_var"]),
                 None if run_deltas is None else run_deltas[:, b],
-                generator=gens[b], defer_covariance=defer, **self.core_kwargs,
+                seed=None if seeds is None else seeds[b], defer_covariance=defer,
+                **self.core_kwargs,
             )
             dets = self._mode(cands)
             if defer and outs["box_reg_var"] is not None:
@@ -266,13 +269,15 @@ class PipelineModule(nn.Module):
 
     @torch.no_grad()
     def detect_post_nms(self, run_outs, input_sizes, output_sizes,
-                        generator: Optional[torch.Generator] = None) -> Detections:
+                        sampling_seeds: Optional[torch.Tensor] = None) -> Detections:
         """Post-NMS modes on the stacked outputs of `run_outputs`: each
         (image, run) unit through the core, standard NMS and the deferred
         covariance; each image's units concatenated run-major (run 0's
-        max_dets detections first) through `black_box_merge`; rescale."""
+        max_dets detections first) through `black_box_merge`; rescale.
+        Unit (b, m)'s Monte-Carlo banks draw from `sampling_seeds[b, m]`
+        (the (B, M) seeds of `seeds.draw_call_seeds`)."""
         num_runs, batch = run_outs["box_cls"].shape[:2]
-        gens = self._generators(generator, batch, num_runs)
+        seeds = self._sampling_seeds(sampling_seeds, batch)
         defer = self.core_kwargs["box_sampling"] == "analytic"
         per_image = []
         for b in range(batch):
@@ -281,8 +286,8 @@ class PipelineModule(nn.Module):
                 unit = {k: None if v is None else v[m, b] for k, v in run_outs.items()}
                 cands = probabilistic_inference_core(
                     self.anchors, unit["box_cls"], unit["box_delta"], unit["box_cls_var"],
-                    unit["box_reg_var"], None, generator=gens[b][m], defer_covariance=defer,
-                    **self.core_kwargs,
+                    unit["box_reg_var"], None, seed=None if seeds is None else seeds[b, m],
+                    defer_covariance=defer, **self.core_kwargs,
                 )
                 dets = M.standard_nms(cands, self.nms_thresh, self.max_dets)
                 if defer and unit["box_reg_var"] is not None:
@@ -300,14 +305,14 @@ class PipelineModule(nn.Module):
     @torch.no_grad()
     def forward(self, images: torch.Tensor, input_sizes: torch.Tensor,
                 output_sizes: torch.Tensor, dropout_seeds: torch.Tensor,
-                sampling_generator: Optional[torch.Generator] = None) -> Detections:
+                sampling_seeds: Optional[torch.Tensor] = None) -> Detections:
         """Images on the device to batched Detections: the head outputs of
         every run, then `detect_post_nms` or `detect`."""
         if self.post_nms:
             return self.detect_post_nms(_stack(self._runs(images, dropout_seeds)),
-                                        input_sizes, output_sizes, sampling_generator)
+                                        input_sizes, output_sizes, sampling_seeds)
         outs, run_deltas = self._head_outputs(images, dropout_seeds)
-        return self.detect(outs, run_deltas, input_sizes, output_sizes, sampling_generator)
+        return self.detect(outs, run_deltas, input_sizes, output_sizes, sampling_seeds)
 
 
 class ProbabilisticPredictor:
@@ -398,16 +403,20 @@ class ProbabilisticPredictor:
             generator: CPU torch.Generator for the stochastic paths
                 (default: seeded with 0). The dropout stream and the
                 sampling stream are drawn from it as two separate seeds, so
-                they never share numbers whatever the run and batch counts.
+                they never share numbers whatever the run and batch counts
+                (``seeds.draw_call_seeds``).
         Returns:
             Batched Detections (leading batch axis) in original-image
             coordinates.
         """
-        dropout_seeds, sampling_seed = draw_call_seeds(generator, self.num_runs, self.num_convs)
-        images = torch.as_tensor(images).to(self.device, non_blocking=True)
+        images = torch.as_tensor(images)
+        dropout_seeds, sampling_seeds = draw_call_seeds(
+            generator, self.num_runs, self.num_convs, images.shape[0],
+            self.num_runs if self.post_nms else 0)
+        images = images.to(self.device, non_blocking=True)
         sizes = lambda s: torch.as_tensor(s, dtype=torch.float32, device=self.device)
         return self.pipeline(images, sizes(input_sizes), sizes(output_sizes), dropout_seeds,
-                             torch.Generator().manual_seed(sampling_seed))
+                             sampling_seeds)
 
 
 def build_predictor(cfg, image_size, state_dict=None, device=None,

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from pod_compare_tpu_torch.ops.kernels.normal import normal
+
 _TRIL_ROWS = [1, 2, 2, 3, 3, 3]
 _TRIL_COLS = [0, 0, 1, 0, 1, 2]
 
@@ -28,15 +30,20 @@ def covariance_output_to_cholesky(pred_bbox_cov: torch.Tensor) -> torch.Tensor:
 
 
 def mvn_sample(
-    generator: torch.Generator,
+    seed,
     mean: torch.Tensor,
     scale_tril: torch.Tensor,
     num_samples: int,
+    offset: int = 0,
+    index=None,
+    rows: int = 0,
 ) -> torch.Tensor:
     """(S, ..., k) samples of N(mean, L L^T) as mean + L z, the normals z
-    drawn from `generator` (which must live on `mean`'s device)."""
-    z = torch.randn((num_samples,) + tuple(mean.shape), generator=generator,
-                    dtype=mean.dtype, device=mean.device)
+    the (S,) + mean.shape stream indices from `offset` of `seed` (an int64
+    0-d CPU tensor or an int; ``ops/kernels/normal.py``), on mean's device;
+    with `index`, for a (C, 4) mean, row index[c] of an (S, rows, 4) bank
+    for row c, so that each row's normals follow its index."""
+    z = normal(seed, (num_samples,) + tuple(mean.shape), mean, offset, index, rows)
     return mean[None] + torch.einsum("...ij,s...j->s...i", scale_tril, z)
 
 

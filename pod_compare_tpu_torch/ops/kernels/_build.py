@@ -2,8 +2,9 @@
 
 Each source has a plain C interface that returns ``cudaError_t``; nothing
 includes PyTorch's headers, so a build takes seconds. The shared library
-goes to ``build/`` at the repository root, named by a hash of the source and
-the flags, and is rebuilt only when that hash changes. Nothing here runs at
+goes to ``build/`` at the repository root, named by a hash of the source,
+the headers of ``csrc/`` it may include and the flags, and is rebuilt only
+when that hash changes. Nothing here runs at
 import time: the first launch builds, or ``build_all`` builds every stale
 source at once, one nvcc process each. What ptxas reports of a build
 (registers, stack, spills) is kept beside its library; a library without
@@ -27,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("dropout.cu", "focal.cu")
+SOURCES = ("dropout.cu", "focal.cu", "normal.cu")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -48,8 +49,11 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> str:
     """Where the library for `source` (a file name under csrc/) lives."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh")):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}-{digest}.so")
 
 

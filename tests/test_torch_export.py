@@ -12,17 +12,21 @@ It mirrors ``tests/test_export.py`` at its geometry (32x32 canvases, batch
   (``save_artifact(..., platforms=("cpu",))``) on the same weights within
   1e-4 of each field's scale (classes and `valid` exactly), as the float
   predictors already agree;
-* the refusals: members placed on two devices, a sampled impl;
-* the two operators the program calls: ``pod_compare_tpu_torch::dropout``
-  equals ``dropout_plain`` bit for bit, and both operators pass
-  ``torch.library.opcheck`` (their fake kernels give the real kernels'
-  shapes, dtypes and strides).
+* an analytic program keeps four inputs (no sampling seeds) and its node
+  count, and an artifact whose manifest predates the sampled impls' export
+  (no ``sampling_seeds_shape``) still loads and serves;
+* the refusal: members placed on two devices;
+* the operators the program calls: ``pod_compare_tpu_torch::dropout``
+  equals ``dropout_plain`` bit for bit, and the dropout, greedy-merge and
+  normal operators pass ``torch.library.opcheck`` (their fake kernels give
+  the real kernels' shapes, dtypes and strides).
 
 The round trips of the multi-run pipelines (``bayes_od`` with MC dropout,
 ``ensembles`` pre-NMS) and the manifest are in
 ``tests/test_torch_export_runs.py``, the post-NMS merge and an artifact
 served in a process without the model code in
-``tests/test_torch_export_merges.py``: an export, save and load of the R50
+``tests/test_torch_export_merges.py``, the Monte-Carlo sampling impls in
+``tests/test_torch_export_sampled.py``: an export, save and load of the R50
 pipeline takes 10-20 s on one core, and each file runs in under a minute
 there. ``test_multi_platform_lowering`` has no counterpart
 here: an ExportedProgram is made for one device, and an artifact exported
@@ -262,6 +266,34 @@ def test_a_cuda_artifact_is_refused_without_cuda(std, tmp_path):
         load_artifact(str(artifact))
 
 
+def test_an_analytic_program_keeps_four_inputs(std):
+    """No sampling seeds in an analytic program: the four inputs and the
+    2340 graph nodes of this program before the sampled impls exported."""
+    served = std["served"]
+    assert served.manifest["sampling_seeds_shape"] is None
+    assert len(served.program.graph_signature.user_inputs) == 4
+    assert served.manifest["graph_nodes"] == len(served.program.graph.nodes) == 2340
+    ops = {str(n.target) for n in served.program.graph.nodes}
+    assert "pod_compare_tpu_torch.normal.default" not in ops
+
+
+def test_an_artifact_without_sampling_seeds_in_its_manifest_serves(std, tmp_path):
+    """A manifest written before the sampled impls exported has no
+    `sampling_seeds_shape`: its program takes four inputs, and it serves as
+    the live predictor does."""
+    artifact = tmp_path / "older"
+    shutil.copytree(std["artifact"], artifact)
+    with open(artifact / "manifest.json") as f:
+        manifest = json.load(f)
+    del manifest["sampling_seeds_shape"]
+    with open(artifact / "manifest.json", "w") as f:
+        json.dump(manifest, f)
+    images = example_batch()
+    assert_equal_detections(std["live"](images, INPUT_SIZES, OUTPUT_SIZES, generator(7)),
+                            load_artifact(str(artifact))(images, INPUT_SIZES, OUTPUT_SIZES,
+                                                         generator(7)))
+
+
 # ------------------------------------------------------------ refusals
 def test_export_refuses_members_on_two_devices(tmp_path):
     cfg = make_cfg("ensembles")
@@ -272,15 +304,6 @@ def test_export_refuses_members_on_two_devices(tmp_path):
     with pytest.raises(ValueError, match="serve several cards by copying the artifact"):
         save_artifact(predictor, str(tmp_path / "a"), batch_size=BATCH)
     assert not (tmp_path / "a").exists()
-
-
-@pytest.mark.parametrize("field", ["CLS_SAMPLING", "BOX_SAMPLING"])
-def test_export_refuses_a_sampled_impl(tmp_path, field):
-    cfg = make_cfg("standard_nms")
-    setattr(cfg.PROBABILISTIC_INFERENCE, field, "mc_iid")
-    predictor = build_predictor(cfg, IMAGE_SIZE, seeded_state(cfg), device="cpu")
-    with pytest.raises(ValueError, match="C2c"):
-        save_artifact(predictor, str(tmp_path / "a"), batch_size=BATCH)
 
 
 # ------------------------------------------------------------ the operators
@@ -318,3 +341,6 @@ def test_operators_pass_opcheck():
     centers, members = greedy_sequential_clusters(iou, classes, valid, 0.3)
     assert centers.shape == (12,) and members.shape == (12, 12)
     assert centers.dtype == members.dtype == torch.bool and bool(centers.any())
+    normal = torch.ops.pod_compare_tpu_torch.normal.default
+    torch.library.opcheck(normal, (torch.zeros(2), torch.tensor(9), [10, 7, 4], 4))
+    torch.library.opcheck(normal, (torch.zeros(2, dtype=torch.bfloat16), torch.tensor(9), [5], 3))

@@ -1,6 +1,7 @@
 """The serving export on a card: artifacts exported for CUDA, saved, loaded
-and served bit for bit as the live predictor, the dropout kernel launched
-as often as in the live call; and refused by a process without CUDA.
+and served bit for bit as the live predictor, the dropout kernel and (with
+the Monte-Carlo sampling impls) the normal kernel launched as often as in
+the live call; and refused by a process without CUDA.
 
 These tests skip where there is no CUDA device. The file imports neither
 JAX nor the JAX package, so on a machine with a card it runs without the
@@ -22,6 +23,7 @@ from pod_compare_tpu_torch.config import get_cfg
 from pod_compare_tpu_torch.inference import build_predictor, load_artifact, save_artifact
 from pod_compare_tpu_torch.models import build_model
 from pod_compare_tpu_torch.ops.kernels import dropout as kd
+from pod_compare_tpu_torch.ops.kernels import normal as kn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMAGE_SIZE = (64, 96)
@@ -34,8 +36,9 @@ def _cuda():
         pytest.skip("needs a CUDA device")
 
 
-def make_cfg(mode, merge=None):
-    """bf16, 2 MC-dropout runs, 5 classes, TOPK 32, 10 detections."""
+def make_cfg(mode, merge=None, sampling="analytic"):
+    """bf16, 2 MC-dropout runs, 5 classes, TOPK 32, 10 detections; the class
+    and box banks `sampling` (3 and 20 samples)."""
     cfg = get_cfg()
     cfg.MODEL.RETINANET.NUM_CLASSES = NUM_CLASSES
     cfg.MODEL.PROBABILISTIC_MODELING.DROPOUT_RATE = 0.2
@@ -50,6 +53,10 @@ def make_cfg(mode, merge=None):
     cfg.PROBABILISTIC_INFERENCE.AFFINITY_THRESHOLD = 0.5
     if merge:
         cfg.PROBABILISTIC_INFERENCE.ENSEMBLES_DROPOUT.BOX_MERGE_MODE = merge
+    cfg.PROBABILISTIC_INFERENCE.CLS_SAMPLING = sampling
+    cfg.PROBABILISTIC_INFERENCE.BOX_SAMPLING = sampling
+    cfg.MODEL.PROBABILISTIC_MODELING.CLS_VAR_LOSS.NUM_SAMPLES = 3
+    cfg.MODEL.PROBABILISTIC_MODELING.BBOX_COV_LOSS.NUM_SAMPLES = 20
     return cfg
 
 
@@ -70,19 +77,24 @@ def export_and_serve(cfg, path):
     served = load_artifact(save_artifact(live, str(path), batch_size=BATCH))
     counts = []
     for predictor in (live, served):
-        kd.LAUNCHES = 0
+        kd.LAUNCHES = kn.LAUNCHES = 0
         dets = predictor(images, sizes, sizes, torch.Generator().manual_seed(7))
         torch.cuda.synchronize()
-        counts.append(kd.LAUNCHES)
+        counts.append((kd.LAUNCHES, kn.LAUNCHES))
         yield dets
-    assert counts[0] == counts[1] == 2 * 2 * 4 * 5  # runs x towers x convs x levels
+    assert counts[0][0] == counts[1][0] == 2 * 2 * 4 * 5  # runs x towers x convs x levels
+    # per image, or per (image, run) unit post-NMS: a class bank and a box chunk
+    units = BATCH * (2 if live.post_nms else 1)
+    assert counts[0][1] == counts[1][1] == (2 * units if live.sampled else 0)
 
 
-@pytest.mark.parametrize("mode,merge", [("bayes_od", None),
-                                        ("mc_dropout_ensembles", "post_nms")])
-def test_round_trip_on_the_card(tmp_path, mode, merge):
+@pytest.mark.parametrize("mode,merge,sampling", [
+    ("bayes_od", None, "analytic"), ("mc_dropout_ensembles", "post_nms", "analytic"),
+    ("bayes_od", None, "mc_iid"), ("bayes_od", None, "mc_shared"),
+    ("mc_dropout_ensembles", "post_nms", "mc_iid")])
+def test_round_trip_on_the_card(tmp_path, mode, merge, sampling):
     _cuda()
-    live, served = export_and_serve(make_cfg(mode, merge), tmp_path / "artifact")
+    live, served = export_and_serve(make_cfg(mode, merge, sampling), tmp_path / "artifact")
     differ = [name for name, a, b in zip(live._fields, live, served) if not same_bits(a, b)]
     assert not differ, differ
     assert served.boxes.device.type == "cuda" and bool(served.valid.any())

@@ -43,6 +43,7 @@ from pod_compare_tpu_torch.config import merge_configs
 from pod_compare_tpu_torch.inference import build_predictor
 from pod_compare_tpu_torch.inference import core as tcore
 from pod_compare_tpu_torch.inference import modes as tmodes
+from pod_compare_tpu_torch.inference.seeds import draw_call_seeds
 from pod_compare_tpu_torch.models import InjectedMasks
 from test_full_model_parity import make_reference_state
 from test_torch_pipeline import (
@@ -283,19 +284,24 @@ def port_predictor(setup, case, extra=(), members=None):
 
 
 def port_detections(setup, case, extra=()):
-    """The port's predictor with the setup's masks injected into its MC runs."""
+    """The port's predictor with the setup's masks injected into its MC runs;
+    a sampled config's banks draw from the seeds of a call with a generator
+    seeded with 0 (`seeds.draw_call_seeds`)."""
     predictor = port_predictor(setup, case, extra)
     images = T(setup["images"])
     injected = [InjectedMasks([[[T(m) for m in layer] for layer in tower] for tower in run])
                 for run in setup["masks"]]
     sizes = lambda s: torch.as_tensor(s)
+    _, sampling_seeds = draw_call_seeds(torch.Generator().manual_seed(0), predictor.num_runs,
+                                        predictor.num_convs, images.shape[0],
+                                        predictor.num_runs if predictor.post_nms else 0)
     if predictor.post_nms:
         return predictor.detect_post_nms(predictor.run_outputs(images, tower_dropouts=injected),
                                          sizes(setup["input_sizes"]),
-                                         sizes(setup["output_sizes"]))
+                                         sizes(setup["output_sizes"]), sampling_seeds)
     outs, run_deltas = predictor.head_outputs(images, tower_dropouts=injected)
     return predictor.detect(outs, run_deltas, sizes(setup["input_sizes"]),
-                            sizes(setup["output_sizes"]))
+                            sizes(setup["output_sizes"]), sampling_seeds)
 
 
 def check_case(setup, case, extra=()):
