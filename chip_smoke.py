@@ -12,12 +12,22 @@ Phases, each printing its seconds on its own line as it ends:
      batch-shared: bit-identical outputs, keep share inside a binomial band,
      one mask across the batch when shared; kernel, plain and bound times
      (device time of launches replayed from a CUDA graph, on inputs that
-     do not fit in L2 and on one that does). Then the normal kernel at the
-     mc_iid flagship's class bank (10, 176580, 7) and box chunk
-     (100, 4540, 4), float32: bit-identical to its plain version run on the
-     card, within 8 ulps of it run on the CPU, the law of its draws; its
-     time (each replayed launch writing a fresh buffer) beside the plain
-     version's, torch.randn's and the bound.
+     do not fit in L2 and on one that does). Its grouped launch over the
+     five FPN levels of a (run, tower, layer), at both canvases' P3-P7,
+     bf16 and f32, per-sample and batch-shared: bit-identical to its plain
+     version; its time at 736x1280 beside the group's byte bound, this
+     kernel launched once a level and F.dropout. Then ptxas's report of
+     every kernel of csrc/normal.cu and csrc/dropout.cu (no stack, no
+     spills) and the SASS per normal of the normal kernel's main instance
+     (cuobjdump); the normal kernel at the mc_iid flagship's class bank
+     (10, 176580, 7) and box chunk (100, 4540, 4), float32: bit-identical to
+     its plain version on the card and on the CPU, within 4 ulps of float64
+     Box-Muller (magnitudes >= 1e-3), the law of its draws; its time (each
+     replayed launch writing a fresh buffer) beside the plain version's,
+     torch.randn's and the bound. With --parent DIR, the dropout kernel of
+     the checkout in DIR too (the P3 launches and the group's five, one a
+     level, bit-identical and timed in turns with this one) and its normal
+     kernel at the class bank, timed in turns.
   3. slice: the flagship BayesOD + MC-dropout(10) predictor at full R50-FPN
      width on the 736x1280 BDD canvas, batch 2, random weights from the
      seed: the launch count of one call, finite outputs, PSD covariances,
@@ -41,10 +51,14 @@ Phases, each printing its seconds on its own line as it ends:
      backward against their plain versions at the P3 shape of a training
      step, bf16 and f32, per-sample and batch-shared masks, channels_last
      and NCHW cotangents: bit-identical; the backward's time and byte bound.
+     The same over a training step's five levels in one launch each way;
+     the grouped backward's time (bf16, per-sample) beside its bound, this
+     kernel once a level and, with --parent, the parent's five launches in
+     turns.
   7. train: the Trainer on the flagship training config with the fused focal
      kernel (CLS_VAR_LOSS.IMPL 'pallas'), batch 4 on the 736x1280 canvas,
      random weights from the seed (the backbone warm-started from a .pth),
-     random ground truth: 6 steps through Trainer.train with 80 dropout and
+     random ground truth: 6 steps through Trainer.train with 16 dropout and
      1 focal launch per step, finite losses, frozen stem/res2, moved head, a
      checkpoint read back to the same state; then 1 untimed and 5 timed
      steps: ms/step (median), img/s, peak device memory.
@@ -61,7 +75,7 @@ Phases, each printing its seconds on its own line as it ends:
      weights saved as the checkpoint it loads: the loader (cv2 decode, resize
      to 750x1333 on a 768x1344 canvas), the flagship predictor at batch 2 in
      bf16, the json and the metric suite. An entry for every image,
-     cls_prob and a PD bbox_covar on every detection, 400 dropout launches a
+     cls_prob and a PD bbox_covar on every detection, 80 dropout launches a
      batch, the native and numpy COCO engines equal, mAP and the metrics
      finite (NaN, the reference's None, only where nothing matched); then the
      ground truth with seeded jitter and covariances, scored the same way,
@@ -76,7 +90,7 @@ Phases, each printing its seconds on its own line as it ends:
      warm-started from a seeded R-50 written as a detectron2-style .pkl
      (which must load the same tensors as a .pth of them), batch 4 on
      736x1280, 20 steps with a checkpoint and Trainer.test every 10; then
-     train_net --resume from the step-10 checkpoint. 80 dropout and 1 focal
+     train_net --resume from the step-10 checkpoint. 16 dropout and 1 focal
      launches in every step, finite losses, frozen stages equal to the
      .pkl's, Trainer.test at steps 10 and 20 on 768x1344 from one test
      loader and one predictor, the resumed run's batches equal to the
@@ -90,7 +104,7 @@ Phases, each printing its seconds on its own line as it ends:
      full width on the 736x1280 canvas, batch 2, bf16; the ensembles with
      five members, the seeded weights with each head tensor moved by 2% in
      noise from the member's seed, each tempered. Per mode: the dropout
-     launches of one call (400 with the MC bank, else 0), finite values,
+     launches of one call (80 with the MC bank, else 0), finite values,
      PD covariances, boxes inside the image, a cluster of >= 2 members in
      every image where the mode clusters; ms/batch (median of 5), peak
      memory, head vs core/mode/merge ms, the card's busy share of a traced
@@ -105,13 +119,13 @@ Phases, each printing its seconds on its own line as it ends:
      within 1e-3. Then apply_net's main
      on ensembles_post_nms over 8 of phase 9's PNGs, the five members
      from their random_seed_<seed> sibling checkpoints.
- 12. rest: apply_net's main on phase 9's 32 PNGs and checkpoint with
+ 12. rest: apply_net's main on 16 of phase 9's PNGs and its checkpoint with
      --batch-size auto (the peak-memory guard's probes at batch 1 and 2, its
      linear fit, the budget, the chosen batch, whose measured peak must fit)
      and --run-pdq (PDQ finite in [0, 1], its seconds), then
      visualize_predictions on 4 images of that json (a PNG each, differing
      from its image); the flagship with HEAD_QUANT int8 at 736x1280, batch
-     2: 400 float32 dropout launches, ms/batch, head ms, peak, its
+     2: 80 float32 dropout launches, ms/batch, head ms, peak, its
      detections against the bf16 head's on the same canvases and masks,
      quantized_conv3x3 at the P3 tower shape on the card against the CPU
      (int32 sums equal, outputs within 1e-6 of scale) and timed against the
@@ -136,7 +150,7 @@ Phases, each printing its seconds on its own line as it ends:
      processes sharing the card (gloo over CUDA tensors), launched as
      --num-devices launches them, against train_net's main on one process
      and twice on one process taking each step's backward over the two
-     processes' rows in turn: 240 dropout and 3 focal launches per rank (the
+     processes' rows in turn: 48 dropout and 3 focal launches per rank (the
      kernels line's), the same checkpoints and metrics rows, the logged
      losses within 1e-5 relative, the evaluation's json matched as above,
      the weights' gaps printed; then three data-parallel steps of that
@@ -146,7 +160,7 @@ Phases, each printing its seconds on its own line as it ends:
      ranks, losses within 1e-5 relative, every weight within 1e-5 of its
      scale, every gradient within 1e-5 of the rows' sum and 6e-5 of the
      one-process step's (which sums over the four images in one call),
-     ReLU and log-variance clamp gates that differ at most 1e-5 of them, 80
+     ReLU and log-variance clamp gates that differ at most 1e-5 of them, 16
      dropout and 1 focal launches per rank, ms/step per rank beside the
      one process's; phase 11's five ensemble members placed by
      create_ensemble_placement, bit-identical to the unplaced predictor;
@@ -161,8 +175,8 @@ Phases, each printing its seconds on its own line as it ends:
      served by a fresh process in which the port's models, config and
      predictor (and JAX) cannot be imported, from the generator seed of a
      live call: every output field bit-identical to the live call's, the
-     dropout and normal kernels launched as often (400 and 0 for the
-     flagship, 80 and 11 for the mc_iid one); torch.export and
+     dropout and normal kernels launched as often (80 and 0 for the
+     flagship, 16 and 11 for the mc_iid one); torch.export and
      torch.export.save seconds, graph nodes, load seconds, the first served
      call and the median of 5 in ms/batch beside the live predictor's.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
@@ -311,6 +325,7 @@ NORMAL_OPS = {"block": (100, 0), "pair": (14, 4)}
 # keyed by the candidates' anchors (of 176,580).
 NORMAL_SHAPES = {"class bank": (10, 176580, 7), "box chunk": (100, 4540, 4)}
 NORMAL_ROWS = 176580
+NORMAL_MAIN = "normal_kernelIfLb1EE"  # normal_kernel<float, true>, the class bank's
 MAX_GATE_FLIPS = 1e-5  # share of tower gates the GPU and CPU may disagree on
 RESNET_BLOCKS = {"res2": 3, "res3": 4, "res4": 6, "res5": 3}
 
@@ -348,6 +363,12 @@ def graph_ms(fns, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def k1_per_pass(cfg) -> int:
+    """K1 launches of one stochastic head pass: one per (tower, layer), each
+    over every FPN level (KernelDropout), each way."""
+    return 2 * cfg.MODEL.RETINANET.NUM_CONVS
 
 
 # ------------------------------------------------------------ weights
@@ -456,14 +477,66 @@ def canvases(seed: int, size, batch: int) -> np.ndarray:
 
 
 # ------------------------------------------------------------ phases
-def check_kernel(seed: int, card: str):
+MASK64 = 0xFFFFFFFFFFFFFFFF
+
+
+def level_shapes(canvas, batch: int):
+    """The five FPN levels' tower shapes on a canvas, P3-P7."""
+    return [(batch, 256, -(-canvas[0] // s), -(-canvas[1] // s)) for s in (8, 16, 32, 64, 128)]
+
+
+def random_levels(gen, shapes, dtype):
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            .contiguous(memory_format=torch.channels_last) for shape in shapes]
+
+
+def parent_dropout(parent: str):
+    """The dropout kernel of the checkout at `parent` (another commit's),
+    one tensor a launch, as ``(forward, backward)``: ``forward(x, out, seed,
+    rate, batch_shared, offset, relu)`` and ``backward(g, gate, dx, ...)``,
+    through its one-tensor C entry points."""
+    lib = parent_library(parent, "dropout.cu")
+    common = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_ulonglong,
+              ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.pod_dropout_forward.argtypes = [ctypes.c_void_p] * 2 + common
+    lib.pod_dropout_backward.argtypes = [ctypes.c_void_p] * 3 + common
+    lib.pod_dropout_forward.restype = lib.pod_dropout_backward.restype = ctypes.c_int
+
+    def call(fn, pointers, x, seed, rate, batch_shared, offset, relu):
+        outer = x.shape[0] if batch_shared else 1
+        err = fn(*pointers, kdropout._DTYPE_CODES[x.dtype], x.numel() // outer, outer, offset,
+                 seed & MASK64, kdropout.keep_threshold(rate), kdropout.keep_scale(rate, x.dtype),
+                 int(relu), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"parent dropout kernel launch failed with cudaError_t {err}")
+
+    def forward(x, out, *args):
+        call(lib.pod_dropout_forward, (x.data_ptr(), out.data_ptr()), x, *args)
+
+    def backward(g, gate, dx, *args):
+        call(lib.pod_dropout_backward, (g.data_ptr(), gate.data_ptr(), dx.data_ptr()), g, *args)
+
+    return forward, backward
+
+
+def in_turns(old, new, iters: int) -> dict:
+    """graph_ms of `old` and `new` in turns: old, new, new, old."""
+    turns = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        turns[who].append(graph_ms(old if who == "parent" else new, iters))
+    return turns
+
+
+def check_kernel(seed: int, card: str, parent=None):
     """Phase 2. Returns the numbers of the bf16 batch-shared case, the one
     the main paths launch, at the slice's P3 and (under "eval") at
     apply_net's, and (under "f32") of the float32 batch-shared case at the
-    slice's P3, the one the int8 head's MC bank launches (phase 12)."""
+    slice's P3, the one the int8 head's MC bank launches (phase 12); with
+    `parent`, each beside the parent's kernel in turns."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rate = 0.2
     main = f32 = None
+    parent_fwd = parent_dropout(parent)[0] if parent else None
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn(P3_SHAPE, generator=gen, device="cuda").to(dtype)
         x = x.contiguous(memory_format=torch.channels_last)
@@ -505,32 +578,27 @@ def check_kernel(seed: int, card: str):
                 f"L2-warm, plain {plain_ms:.4f} ms, "
                 f"F.dropout {torch_ms:.4f} ms, bound {bound_ms:.4f} ms ({card})")
             numbers = dict(max_abs_err=err, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, torch_dropout_ms=torch_ms)
+                           bound_ms=bound_ms, torch_dropout_ms=torch_ms, in_turns_ms=None)
+            if parent_fwd is not None and shared:
+                outs = [torch.empty_like(c) for c in copies]
+                parent_fwd(x, outs[0], args["seed"], rate, shared, args["offset"], True)
+                if not torch.equal(outs[0].view(bits), k.view(bits)):
+                    raise AssertionError(f"the parent's kernel differs from this one ({dtype})")
+                old = [lambda c=c, o=o: parent_fwd(c, o, args["seed"], rate, shared,
+                                                   args["offset"], True)
+                       for c, o in zip(copies, outs)]
+                numbers["in_turns_ms"] = in_turns(old, kernel, 100)
+                t = numbers["in_turns_ms"]
+                log(f"kernel {str(dtype)[6:]} shared: in turns (parent, this, this, parent) the "
+                    f"parent's kernel {t['parent'][0]:.4f}/{t['parent'][1]:.4f} ms, this kernel "
+                    f"{t['this'][0]:.4f}/{t['this'][1]:.4f} ms L2-cold, outputs bit-identical "
+                    f"({card})")
             if shared and dtype == torch.bfloat16:
                 main = numbers
             elif shared:
                 f32 = numbers
     main["f32"] = f32
-    # The case inference launches (bf16, batch-shared, ReLU fused) at every
-    # FPN level of both canvases, each level at its offset in one draw over
-    # P3-P7 as KernelDropout gives it: the slice's 736x1280 and apply_net's
-    # 768x1344.
-    args = dict(seed=seed * 7919 + 17, rate=rate, batch_shared=True)
-    for canvas in (CANVAS, EVAL_CANVAS):
-        levels = [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in (8, 16, 32, 64, 128)]
-        offset = 0
-        for h, w in levels:
-            x = torch.randn((BATCH, 256, h, w), generator=gen, device="cuda").to(torch.bfloat16)
-            x = x.contiguous(memory_format=torch.channels_last)
-            k = kdropout.dropout_cuda(x, relu=True, offset=offset, **args)
-            p = kdropout.dropout_plain(x, relu=True, offset=offset, **args)
-            if not torch.equal(k.view(torch.int16), p.view(torch.int16)):
-                raise AssertionError(f"kernel != plain at {tuple(x.shape)}, offset {offset}")
-            offset += h * w * 256
-        elems = sum(h * w for h, w in levels) * 256 * BATCH
-        log(f"kernel bf16 shared on the {canvas[0]}x{canvas[1]} canvas: P3-P7 "
-            f"{[(h, w) for h, w in levels]} bit-identical; bound for one (run, tower, layer) "
-            f"over P3-P7: {elems} elements, {2 * elems * 2 / HBM_BYTES_PER_S * 1e3:.4f} ms ({card})")
+    main["group"] = check_dropout_groups(seed, card, parent)
 
     # apply_net's P3 timed as the slice's is above.
     x = torch.randn(EVAL_P3_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
@@ -557,6 +625,92 @@ def check_kernel(seed: int, card: str):
     return main
 
 
+def check_dropout_groups(seed: int, card: str, parent=None) -> dict:
+    """Phase 2, part 2: the grouped forward (one launch over the five FPN
+    levels of a (run, tower, layer), relu on) at both canvases' P3-P7 (the
+    slice's 736x1280 and apply_net's 768x1344, batch 2), bfloat16 and
+    float32, per-sample and batch-shared, against dropout_levels_plain bit
+    for bit (and, with `parent`, against the parent's kernel launched once
+    a level); then its time at the slice's canvas, bf16 and f32
+    batch-shared (the main path's and the int8 head's), device time of a
+    CUDA graph's replay on groups that together exceed the L2 twice over,
+    beside the group's byte bound, the plain version, this kernel launched
+    once a level, F.dropout a level, and the parent's five launches in
+    turns. Returns the bf16 numbers, the f32 ones under "f32"."""
+    rate = 0.2
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    parent_fwd = parent_dropout(parent)[0] if parent else None
+    draw = seed * 7919 + 17
+    for canvas in (CANVAS, EVAL_CANVAS):
+        shapes = level_shapes(canvas, BATCH)
+        for dtype in (torch.bfloat16, torch.float32):
+            bits = torch.int32 if dtype == torch.float32 else torch.int16
+            for shared in (True, False):
+                xs = random_levels(gen, shapes, dtype)
+                args = (draw, rate, shared, level_offsets(xs, shared), True)
+                before = kdropout.LAUNCHES
+                k = kdropout.dropout_levels_cuda(xs, *args)
+                if kdropout.LAUNCHES != before + 1:
+                    raise AssertionError("a group took more than one launch")
+                p = kdropout.dropout_levels_plain(xs, *args)
+                if not all(torch.equal(a.view(bits), b.view(bits)) for a, b in zip(k, p)):
+                    raise AssertionError(f"grouped kernel != plain on {canvas} ({dtype}, "
+                                         f"shared={shared})")
+                if parent_fwd is not None:
+                    for x, out, offset in zip(xs, k, args[3]):
+                        old = torch.empty_like(x)
+                        parent_fwd(x, old, draw, rate, shared, offset, True)
+                        if not torch.equal(old.view(bits), out.view(bits)):
+                            raise AssertionError(f"grouped kernel != the parent's at "
+                                                 f"{tuple(x.shape)} ({dtype}, shared={shared})")
+        elems = sum(math.prod(sh) for sh in shapes)
+        log(f"kernel grouped on the {canvas[0]}x{canvas[1]} canvas: P3-P7 "
+            f"{[sh[2:] for sh in shapes]} in one launch, bf16 and f32, per-sample and "
+            f"batch-shared, bit-identical to the plain version"
+            + (" and to the parent's launch per level" if parent_fwd else "")
+            + f"; {elems} elements ({card})")
+    records = {}
+    shapes = level_shapes(CANVAS, BATCH)
+    for dtype in (torch.bfloat16, torch.float32):
+        group_bytes = sum(math.prod(sh) for sh in shapes) * torch.finfo(dtype).bits // 8
+        groups = [random_levels(gen, shapes, dtype)
+                  for _ in range(max(2, -(-120_000_000 // group_bytes)))]
+        offsets = level_offsets(groups[0], True)
+        args = (draw, rate, True, offsets, True)
+        grouped = [lambda g=g: kdropout.dropout_levels_cuda(g, *args) for g in groups]
+        five = [lambda g=g: [kdropout.dropout_cuda(x, draw, rate, True, o, True)
+                             for x, o in zip(g, offsets)] for g in groups]
+        rec = dict(
+            shapes=[list(sh) for sh in shapes], dtype=str(dtype)[6:],
+            ms=graph_ms(grouped, 100), five_launches_ms=graph_ms(five, 100),
+            plain_ms=graph_ms([lambda g=g: kdropout.dropout_levels_plain(g, *args)
+                               for g in groups], 5),
+            torch_dropout_ms=graph_ms([lambda g=g: [torch.nn.functional.dropout(x, rate)
+                                                    for x in g] for g in groups], 100),
+            bound_ms=2 * group_bytes / HBM_BYTES_PER_S * 1e3, in_turns_ms=None)
+        if parent_fwd is not None:
+            outs = [[torch.empty_like(x) for x in g] for g in groups]
+            old = [lambda g=g, o=o: [parent_fwd(x, y, draw, rate, True, off, True)
+                                     for x, y, off in zip(g, o, offsets)]
+                   for g, o in zip(groups, outs)]
+            rec["in_turns_ms"] = in_turns(old, grouped, 100)
+        t = rec["in_turns_ms"]
+        log(f"kernel grouped {rec['dtype']} shared at {CANVAS[0]}x{CANVAS[1]} P3-P7: one launch "
+            f"{rec['ms']:.4f} ms L2-cold against a bound of {rec['bound_ms']:.4f} ms "
+            f"({100 * rec['bound_ms'] / rec['ms']:.1f}%), this kernel once a level "
+            f"{rec['five_launches_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, F.dropout a level "
+            f"{rec['torch_dropout_ms']:.4f} ms"
+            + (f"; in turns (parent, this, this, parent) the parent's five launches "
+               f"{t['parent'][0]:.4f}/{t['parent'][1]:.4f} ms, this group "
+               f"{t['this'][0]:.4f}/{t['this'][1]:.4f} ms" if t else "") + f" ({card})")
+        records[rec["dtype"]] = rec
+        del groups
+        torch.cuda.empty_cache()
+    main = records["bfloat16"]
+    main["f32"] = records["float32"]
+    return main
+
+
 def normal_bound_ms(n: int, read_bytes: int = 0) -> dict:
     """The normal function's bounds for n float32 normals: bytes written
     (and `read_bytes` read: a row index), instruction issue and MUFU work
@@ -569,24 +723,98 @@ def normal_bound_ms(n: int, read_bytes: int = 0) -> dict:
             "mufu": mufu / MUFU_PER_S * 1e3}
 
 
-def check_normal_kernel(seed: int, card: str) -> dict:
-    """Phase 2, part 2: the normal kernel against its plain version on the
-    card at the mc_iid flagship's class bank and box chunk (its rows keyed
-    by 4,540 anchors of 176,580, pod_normal_rows), float32, bit for
-    bit (both call CUDA's logf, sqrtf, sinf and cosf), and against the plain
-    version on the CPU within 8 ulps (another math library; the differing
-    count printed); the law of the draws; then its time by
+def box_muller64(q: torch.Tensor, seed: int) -> torch.Tensor:
+    """(..., 4) float64 Box-Muller normals of Philox blocks q (int64) under
+    `seed`: the normal kernel's function without its float32 arithmetic."""
+    w = torch.stack(kdropout.philox4x32_10(q & 0xFFFFFFFF, q >> 32, seed), dim=-1)
+    u = ((w >> 8) + 1).double() / 2 ** 24
+    r = torch.sqrt(-2 * torch.log(u[..., 0::2]))
+    t = 2 * math.pi * u[..., 1::2]
+    return torch.stack([r * torch.cos(t), r * torch.sin(t)], dim=-1).flatten(-2)
+
+
+def float64_error(z: torch.Tensor, want: torch.Tensor):
+    """(max ulps where |want| >= normal.MAX_ULPS_ABOVE, max abs error below)."""
+    z, want = z.double().reshape(-1), want.reshape(-1)
+    big = want.abs() >= knormal.MAX_ULPS_ABOVE
+    top = torch.frexp(torch.maximum(z.abs(), want.abs()))[1]
+    ulps = (z - want).abs() / torch.ldexp(torch.ones_like(want), top - 24)
+    return float(ulps[big].max()), float((z - want).abs()[~big].max())
+
+
+def parent_normal(parent: str):
+    """The normal kernel of the checkout at `parent` (another commit's), as
+    ``launch(out, seed, offset)`` for a float32 `out`: pod_normal."""
+    fn = parent_library(parent, "normal.cu").pod_normal
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong,
+                   ctypes.c_ulonglong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch_parent(out, seed: int, offset: int) -> None:
+        err = fn(out.data_ptr(), 0, out.numel(), offset, seed & MASK64,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"parent normal kernel launch failed with cudaError_t {err}")
+
+    return launch_parent
+
+
+def check_normal_build(card: str) -> dict:
+    """What ptxas reported of every kernel of csrc/normal.cu and
+    csrc/dropout.cu (registers; no stack, no spills) and, where cuobjdump is
+    found, the SASS of the normal kernel's main instance (float32, vector
+    stores): its loop over two Philox blocks (eight normals) a pass, per
+    normal."""
+    reports = {}
+    for source in ("normal.cu", "dropout.cu"):
+        for name, info in sorted(ptxas_instances(_build.ptxas_report(source), "").items()):
+            log(f"ptxas {source} {name}: {info.get('registers')} registers, "
+                f"{info.get('stack_bytes')} bytes stack, {info.get('spill_stores')} bytes spill "
+                f"stores, {info.get('spill_loads')} bytes spill loads ({card})")
+            if (len(info) != 4 or info["stack_bytes"] or info["spill_stores"]
+                    or info["spill_loads"]):
+                raise AssertionError(f"{source} {name}: stack or spills, or no report: {info}")
+            reports[name] = info
+    main = next((info for name, info in reports.items() if NORMAL_MAIN in name), None)
+    if main is None:
+        raise AssertionError(f"ptxas reported no {NORMAL_MAIN} (the main path's instance)")
+    sass = sass_counts(_build.library_path("normal.cu"), NORMAL_MAIN, first_loop=True)
+    if sass is None:
+        log("normal SASS: cuobjdump not found, SASS not counted")
+    else:
+        sass["per_normal"] = sass["loop_instructions"] / 8
+        sass["mufu_per_normal"] = sass["loop_mufu"] / 8
+        log(f"normal SASS of normal_kernel<float, vector>: {sass['instructions']} instructions, "
+            f"{sass['mufu']} MUFU; its loop over two whole Philox blocks a pass "
+            f"{sass['loop_instructions']} "
+            f"instructions, {sass['loop_mufu']} MUFU: {sass['per_normal']:g} and "
+            f"{sass['mufu_per_normal']:g} per normal ({card})")
+    return {"ptxas": main, "sass": sass}
+
+
+def check_normal_kernel(seed: int, card: str, parent=None) -> dict:
+    """Phase 2, part 3: the normal kernel against its plain version at the
+    mc_iid flagship's class bank and box chunk (its rows keyed by 4,540
+    anchors of 176,580, pod_normal_rows), float32, bit for bit on the card
+    and on the CPU (every FMA of the kernel is an exact fma in the plain
+    version); against float64 Box-Muller of the same words within
+    normal.MAX_ULPS for normals of magnitude 1e-3 or more and
+    normal.MAX_ABS_BELOW below; the law of the draws; then its time by
     CUDA-graph replay, each launch writing a fresh buffer (L2-cold), against
-    the plain version's, torch.randn's (another stream, the same law) and
-    the bound. Returns the class bank's numbers, with the box chunk's under
-    "box_chunk"."""
+    the plain version's, torch.randn's (another stream, the same law), the
+    bound and, with `parent`, the parent's kernel at the class bank in
+    turns. Returns the class bank's numbers, with the box chunk's under
+    "box_chunk" and ptxas's and the SASS's under "build"."""
+    build = check_normal_build(card)
     like = torch.zeros(1, device="cuda")
     gen = torch.Generator().manual_seed(seed)
     anchors = torch.randperm(NORMAL_ROWS, generator=gen)[:NORMAL_SHAPES["box chunk"][1]]
+    parent_fn = parent_normal(parent) if parent else None
     records = {}
     for name, shape in NORMAL_SHAPES.items():
         n = math.prod(shape)
-        args = (shape, seed * 7919 + 23, 4 * 12345)
+        draw, offset = seed * 7919 + 23, 4 * 12345
+        args = (shape, draw, offset)
         rows = {} if name == "class bank" else dict(index=anchors.cuda(), rows=NORMAL_ROWS)
         k = knormal.normal_cuda(*args, like, **rows)
         p = knormal.normal_plain(*args, torch.float32, "cuda", **rows)
@@ -597,13 +825,19 @@ def check_normal_kernel(seed: int, card: str) -> dict:
         err = float((k - p).abs().max())
         c = knormal.normal_plain(*args, **({} if not rows else dict(index=anchors,
                                                                     rows=NORMAL_ROWS))).cuda()
-        diff = (k - c).abs()
-        ulp = torch.ldexp(torch.ones_like(k), torch.frexp(torch.maximum(k.abs(), c.abs()))[1] - 24)
-        cpu_ulps = float((diff / ulp).max())
         cpu_differ = int((k != c).sum())
-        if cpu_ulps > 8:
+        if cpu_differ:
             raise AssertionError(f"normal kernel against the CPU's plain version at {shape}: "
-                                 f"{cpu_ulps} ulps")
+                                 f"{cpu_differ} of {n} differ")
+        if rows:
+            s = torch.arange(shape[0], device="cuda")[:, None]
+            q = offset // 4 + s * NORMAL_ROWS + rows["index"][None]
+        else:
+            q = offset // 4 + torch.arange(n // 4, device="cuda")
+        ulps, small = float64_error(k, box_muller64(q, draw))
+        if not (ulps <= knormal.MAX_ULPS and small <= knormal.MAX_ABS_BELOW):
+            raise AssertionError(f"normal kernel against float64 at {shape}: {ulps} ulps at "
+                                 f"magnitudes >= {knormal.MAX_ULPS_ABOVE}, {small} below")
         z = k.double()
         mean, var = float(z.mean()), float(z.var())
         tail = float((z.abs() > 3).double().mean())
@@ -611,10 +845,17 @@ def check_normal_kernel(seed: int, card: str) -> dict:
                 or abs(tail - 0.0026998) > 6 * math.sqrt(0.0027 / n)):
             raise AssertionError(f"normal kernel's law at {shape}: mean {mean}, var {var}, "
                                  f"share beyond 3 {tail}")
-        del k, p, c, diff, ulp, z
+        del k, p, c, z, q
         keep = []
-        ms = graph_ms([lambda: keep.append(knormal.normal_cuda(*args, like, **rows))], 20)
+        kernel = [lambda: keep.append(knormal.normal_cuda(*args, like, **rows))]
+        ms = graph_ms(kernel, 20)
         keep.clear()
+        turns = None
+        if parent_fn is not None and not rows:
+            old = [lambda: keep.append(torch.empty(shape, device="cuda")) or parent_fn(
+                keep[-1], draw, offset)]
+            turns = in_turns(old, kernel, 20)
+            keep.clear()
         plain_ms = graph_ms([lambda: keep.append(knormal.normal_plain(*args, torch.float32,
                                                                       "cuda", **rows))], 3)
         keep.clear()
@@ -624,19 +865,24 @@ def check_normal_kernel(seed: int, card: str) -> dict:
         bounds = normal_bound_ms(n, 8 * shape[1] if rows else 0)
         bound_ms = max(bounds.values())
         records[name] = dict(
-            shape=list(shape), max_abs_err=err, cpu_max_ulps=cpu_ulps, cpu_differ=cpu_differ,
-            ms=ms, plain_ms=plain_ms, torch_randn_ms=randn_ms, bound_ms=bound_ms,
-            bound_by="bytes" if bounds["bytes"] >= bound_ms else "operations",
+            shape=list(shape), max_abs_err=err, cpu_differ=cpu_differ, float64_max_ulps=ulps,
+            float64_max_abs_below=small, ms=ms, plain_ms=plain_ms, torch_randn_ms=randn_ms,
+            bound_ms=bound_ms, bound_by="bytes" if bounds["bytes"] >= bound_ms else "operations",
             bytes_bound_ms=bounds["bytes"], issue_bound_ms=bounds["issue"],
-            mufu_bound_ms=bounds["mufu"])
+            mufu_bound_ms=bounds["mufu"], in_turns_ms=turns)
         log(f"normal kernel {name} {shape} float32: bit-identical to the plain version on the "
-            f"card; against the CPU's {cpu_differ} of {n} differ, at most {cpu_ulps:.1f} ulps; "
-            f"mean {mean:+.5f}, var {var:.5f}, beyond 3 {tail:.6f}; kernel {ms:.4f} ms "
-            f"L2-cold, plain {plain_ms:.4f} ms, torch.randn {randn_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms (bytes {bounds['bytes']:.4f}, issue {bounds['issue']:.4f}, "
-            f"MUFU {bounds['mufu']:.4f}) ({card})")
+            f"card and on the CPU; against float64 within {ulps:.3f} ulps at magnitudes >= "
+            f"{knormal.MAX_ULPS_ABOVE:g}, {small:.3e} below; mean {mean:+.5f}, var {var:.5f}, "
+            f"beyond 3 {tail:.6f}; kernel {ms:.4f} ms L2-cold, plain {plain_ms:.4f} ms, "
+            f"torch.randn {randn_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
+            f"{bounds['bytes']:.4f}, issue {bounds['issue']:.4f}, MUFU {bounds['mufu']:.4f})"
+            + (f"; in turns (parent, this, this, parent) the parent's kernel "
+               f"{turns['parent'][0]:.4f}/{turns['parent'][1]:.4f} ms, this kernel "
+               f"{turns['this'][0]:.4f}/{turns['this'][1]:.4f} ms" if turns else "")
+            + f" ({card})")
     main = records["class bank"]
     main["box_chunk"] = records["box chunk"]
+    main["build"] = build
     return main
 
 
@@ -685,8 +931,7 @@ def run_slice(seed: int, card: str):
                          generator=torch.Generator().manual_seed(s))
 
     runs = int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS)
-    levels = len(cfg.MODEL.RETINANET.IN_FEATURES)
-    expected = runs * 2 * cfg.MODEL.RETINANET.NUM_CONVS * levels
+    expected = runs * k1_per_pass(cfg)
     kdropout.LAUNCHES = 0
     t0 = time.perf_counter()
     dets = call(seed)
@@ -861,11 +1106,11 @@ def cuobjdump_path():
     return bundled if os.path.isfile(bundled) else None
 
 
-def sass_counts(library: str, function: str):
+def sass_counts(library: str, function: str, first_loop: bool = False):
     """Static SASS of the first function whose name holds `function`:
     (instructions, MUFU) of the whole function and of its loop with the most
-    MUFU (the body between a backward branch and its target); None without
-    cuobjdump."""
+    MUFU (the body between a backward branch and its target), or with
+    `first_loop` of its first loop; None without cuobjdump."""
     tool = cuobjdump_path()
     if tool is None:
         return None
@@ -881,7 +1126,7 @@ def sass_counts(library: str, function: str):
         m = re.search(r"BRA\s+0x([0-9a-f]+)", ins)
         if m and int(m.group(1), 16) < addr:
             loops.append((mufu(int(m.group(1), 16), addr), size(int(m.group(1), 16), addr)))
-    loop = max(loops) if loops else (0, 0)
+    loop = (loops[0] if first_loop else max(loops)) if loops else (0, 0)
     return {"instructions": len(code), "mufu": mufu(0, code[-1][0]),
             "loop_instructions": loop[1], "loop_mufu": loop[0]}
 
@@ -1029,9 +1274,11 @@ def check_focal_kernel(seed: int, card: str, num_anchors: int, parent=None):
     return main
 
 
-def check_dropout_backward(seed: int, card: str):
+def check_dropout_backward(seed: int, card: str, parent=None):
     """Phase 6. Returns the bf16 numbers with a channels_last cotangent (the
-    layout the convolutions' backward hands the kernel on the main path)."""
+    layout the convolutions' backward hands the kernel on the main path),
+    and under "group" those of the grouped backward over a training step's
+    five levels (check_dropout_backward_groups)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rate = 0.2
     main = None
@@ -1073,7 +1320,90 @@ def check_dropout_backward(seed: int, card: str):
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({card})")
         if dtype == torch.bfloat16:
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+    main["group"] = check_dropout_backward_groups(seed, card, parent)
     return main
+
+
+def check_dropout_backward_groups(seed: int, card: str, parent=None) -> dict:
+    """Phase 6, part 2: the grouped forward and backward over the five
+    levels of a training step (batch 4 on 736x1280: 2.5 million chunks of
+    8 per-sample, about ten passes of the grid), bf16 and f32, per-sample
+    and batch-shared, channels_last and NCHW cotangents, against their plain
+    versions bit for bit (and the backward against the parent's launch per
+    level); the bf16 per-sample backward's time (the flagship's), one launch,
+    beside its byte bound, this kernel once a level and the parent's five
+    launches in turns."""
+    rate = 0.2
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    parent_bwd = parent_dropout(parent)[1] if parent else None
+    draw = seed * 131 + 7
+    shapes = level_shapes(CANVAS, TRAIN_BATCH)
+    for dtype in (torch.bfloat16, torch.float32):
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        for shared in (False, True):
+            xs = random_levels(gen, shapes, dtype)
+            args = (draw, rate, shared, level_offsets(xs, shared), True)
+            outs = kdropout.dropout_levels_cuda(xs, *args)
+            if not all(torch.equal(a.view(bits), b.view(bits))
+                       for a, b in zip(outs, kdropout.dropout_levels_plain(xs, *args))):
+                raise AssertionError(f"grouped forward != plain at the training levels "
+                                     f"({dtype}, shared={shared})")
+            for layout in ("channels_last", "nchw"):
+                gs = [torch.randn(sh, generator=gen, device="cuda").to(dtype) for sh in shapes]
+                if layout == "channels_last":
+                    gs = [g.contiguous(memory_format=torch.channels_last) for g in gs]
+                before = kdropout.LAUNCHES
+                k = kdropout.dropout_levels_backward_cuda(gs, outs, *args)
+                if kdropout.LAUNCHES != before + 1:
+                    raise AssertionError("a grouped backward took more than one launch")
+                p = kdropout.dropout_levels_backward_plain(gs, outs, *args)
+                if not all(torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
+                           for a, b in zip(k, p)):
+                    raise AssertionError(f"grouped backward != plain ({dtype}, shared={shared}, "
+                                         f"{layout})")
+                if parent_bwd is not None and layout == "channels_last":
+                    for g, out, dx, offset in zip(gs, outs, k, args[3]):
+                        old = torch.empty_like(dx)
+                        parent_bwd(g, out, old, draw, rate, shared, offset, True)
+                        if not torch.equal(old.view(bits), dx.view(bits)):
+                            raise AssertionError(f"grouped backward != the parent's at "
+                                                 f"{tuple(g.shape)} ({dtype}, shared={shared})")
+    log(f"dropout grouped at the training levels {[sh[2:] for sh in shapes]}, batch "
+        f"{TRAIN_BATCH}: forward and backward one launch each, bit-identical to the plain "
+        f"versions" + (" and the backward to the parent's launch per level" if parent_bwd else "")
+        + f", bf16 and f32, per-sample and batch-shared, channels_last and NCHW ({card})")
+    dtype = torch.bfloat16
+    group_bytes = sum(math.prod(sh) for sh in shapes) * 2
+    pairs = []
+    for _ in range(2):
+        xs = random_levels(gen, shapes, dtype)
+        offsets = level_offsets(xs, False)
+        args = (draw, rate, False, offsets, True)
+        pairs.append((random_levels(gen, shapes, dtype), kdropout.dropout_levels_cuda(xs, *args)))
+    grouped = [lambda gp=gp: kdropout.dropout_levels_backward_cuda(gp[0], gp[1], *args)
+               for gp in pairs]
+    five = [lambda gp=gp: [kdropout.dropout_backward_cuda(g, o, draw, rate, False, off, True)
+                           for g, o, off in zip(gp[0], gp[1], offsets)] for gp in pairs]
+    rec = dict(shapes=[list(sh) for sh in shapes], ms=graph_ms(grouped, 50),
+               five_launches_ms=graph_ms(five, 50),
+               plain_ms=graph_ms([lambda gp=gp: kdropout.dropout_levels_backward_plain(
+                   gp[0], gp[1], *args) for gp in pairs], 2),
+               bound_ms=3 * group_bytes / HBM_BYTES_PER_S * 1e3, in_turns_ms=None)
+    if parent_bwd is not None:
+        dxs = [[torch.empty_like(g) for g in gp[0]] for gp in pairs]
+        old = [lambda gp=gp, d=d: [parent_bwd(g, o, dx, draw, rate, False, off, True)
+                                   for g, o, dx, off in zip(gp[0], gp[1], d, offsets)]
+               for gp, d in zip(pairs, dxs)]
+        rec["in_turns_ms"] = in_turns(old, grouped, 50)
+    t = rec["in_turns_ms"]
+    log(f"dropout grouped backward bf16 per-sample at the training levels: one launch "
+        f"{rec['ms']:.4f} ms L2-cold against a bound of {rec['bound_ms']:.4f} ms "
+        f"({100 * rec['bound_ms'] / rec['ms']:.1f}%), this kernel once a level "
+        f"{rec['five_launches_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms"
+        + (f"; in turns (parent, this, this, parent) the parent's five launches "
+           f"{t['parent'][0]:.4f}/{t['parent'][1]:.4f} ms, this group "
+           f"{t['this'][0]:.4f}/{t['this'][1]:.4f} ms" if t else "") + f" ({card})")
+    return rec
 
 
 def train_cfg(seed: int, out_dir: str, opts=()):
@@ -1106,7 +1436,7 @@ def run_train(seed: int, card: str, work: str):
     watched = ("backbone.bottom_up.stem.conv1.weight", "backbone.bottom_up.res2.2.conv3.weight",
                "head.cls_subnet.0.weight", "head.cls_score.weight", "head.cls_var.weight")
     before = {k: model.state_dict()[k].clone() for k in watched}
-    per_step = 2 * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES)
+    per_step = k1_per_pass(cfg)
     steps = 6
     kdropout.LAUNCHES = kfocal.LAUNCHES = 0
     trainer.train(max_iter=steps, log_period=steps)
@@ -1202,10 +1532,11 @@ class RecordedGates(TowerDropout):
     def __init__(self, kernel: KernelDropout):
         self.kernel, self.gates = kernel, {}
 
-    def __call__(self, x, tower, layer, level):
-        out = self.kernel(x, tower, layer, level)
-        self.gates[tower, layer, level] = (out > 0).cpu()
-        return out
+    def __call__(self, xs, tower, layer):
+        outs = self.kernel(xs, tower, layer)
+        for level, out in enumerate(outs):
+            self.gates[tower, layer, level] = (out > 0).cpu()
+        return outs
 
 
 class PinnedGates(TowerDropout):
@@ -1219,13 +1550,18 @@ class PinnedGates(TowerDropout):
     def __init__(self, kernel: KernelDropout, gates):
         self.kernel, self.gates, self.flips, self.total = kernel, gates, 0, 0
 
-    def __call__(self, x, tower, layer, level):
-        gate = self.gates[tower, layer, level].to(x.device)
+    def __call__(self, xs, tower, layer):
         with torch.no_grad():
-            self.flips += int(((self.kernel(x, tower, layer, level) > 0) != gate).sum())
-        self.total += gate.numel()
-        scale = kdropout.keep_scale(self.kernel.rate, x.dtype)
-        return torch.where(gate, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
+            own = self.kernel(xs, tower, layer)
+        outs = []
+        for level, (x, y) in enumerate(zip(xs, own)):
+            gate = self.gates[tower, layer, level].to(x.device)
+            self.flips += int(((y > 0) != gate).sum())
+            self.total += gate.numel()
+            scale = kdropout.keep_scale(self.kernel.rate, x.dtype)
+            outs.append(torch.where(gate, x * scale,
+                                    torch.zeros((), dtype=x.dtype, device=x.device)))
+        return outs
 
 
 def check_train_against_cpu(seed: int, card: str, work: str) -> None:
@@ -1384,8 +1720,7 @@ def run_eval(seed: int, card: str, work: str):
     Checkpointer(out_dir).save(0, {"model": temper_head(sd, cfg, probe, "cuda")})
 
     batches = -(-EVAL_IMAGES // BATCH)
-    per_batch = (int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * 2
-                 * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES))
+    per_batch = int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * k1_per_pass(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kdropout.LAUNCHES = 0
@@ -1647,7 +1982,7 @@ def run_train_net(seed: int, card: str, work: str):
     cfg = merge_configs(TRAIN_CFG, "", list(map(str, opts)) + ["SEED", str(seed)])
     if (cfg.DATALOADER.NUM_WORKERS, cfg.DATALOADER.WORKER_BACKEND) != (8, "thread"):
         raise AssertionError("the flagship config's loader is no longer 8 threads")
-    per_step = 2 * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES)
+    per_step = k1_per_pass(cfg)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1897,8 +2232,7 @@ def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
     probe = images[:1].cpu()
     tempered = temper_head(sd, flagship, probe, device)
     members = ensemble_members(flagship, sd, probe, device)
-    per_batch = (int(flagship.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * 2
-                 * flagship.MODEL.RETINANET.NUM_CONVS * len(flagship.MODEL.RETINANET.IN_FEATURES))
+    per_batch = int(flagship.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * k1_per_pass(flagship)
     records = {}
     for name, infer, opts in MODE_CASES:
         t_mode = time.perf_counter()
@@ -2220,19 +2554,22 @@ DEVICE = "cuda"
 
 
 def flagship_launches(cfg) -> int:
-    return (int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * 2
-            * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES))
+    return int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * k1_per_pass(cfg)
+
+
+AUTO_IMAGES = 16  # of phase 9's 32 PNGs: PDQ, on the host, takes ~1.6 s an image
 
 
 def run_auto_apply_net(seed: int, card: str, work: str):
     """Phase 12, part 1: apply_net's main with --batch-size auto and
-    --run-pdq on phase 9's 32 PNGs and checkpoint. Returns its dropout
-    launches and its json's path."""
+    --run-pdq on AUTO_IMAGES of phase 9's PNGs and its checkpoint. Returns
+    its dropout launches and its json's path."""
     data = os.path.join(work, "data")
     os.environ["POD_COMPARE_DATA_DIR"] = data
+    root = bdd_subset(work, "bdd_auto", AUTO_IMAGES)
     args = setup_arg_parser().parse_args(
         ["--config-file", TRAIN_CFG, "--inference-config", INFER_CFG, "--dataset-dir",
-         os.path.join(work, "bdd"), "--test-dataset", "bdd_val", "--random-seed", str(seed)])
+         root, "--test-dataset", "bdd_val", "--random-seed", str(seed)])
     args.run_pdq = True
     per_call = flagship_launches(merge_configs(TRAIN_CFG, INFER_CFG))
     torch.cuda.synchronize()
@@ -2249,7 +2586,7 @@ def run_auto_apply_net(seed: int, card: str, work: str):
     # The guard's predictor calls (batches 1 and 2, then each candidate run
     # to check its prediction) and the batches of the run itself.
     guard_calls = 2 + sum(1 for b in auto["measured"] if b not in (1, 2))
-    batches = -(-EVAL_IMAGES // chosen)
+    batches = -(-AUTO_IMAGES // chosen)
     if launches != per_call * (guard_calls + batches):
         raise AssertionError(f"{launches} dropout launches, expected {per_call} x "
                              f"({guard_calls} guard calls + {batches} batches)")
@@ -2267,9 +2604,9 @@ def run_auto_apply_net(seed: int, card: str, work: str):
     json_path = os.path.join(summary["inference_output_dir"], "coco_instances_results.json")
     with open(json_path) as f:
         records = json.load(f)
-    with open(os.path.join(work, "bdd", "labels", "val_coco_format.json")) as f:
+    with open(os.path.join(root, "labels", "val_coco_format.json")) as f:
         ids = {im["id"] for im in json.load(f)["images"]}
-    if {r["image_id"] for r in records} != ids or summary["num_images"] != EVAL_IMAGES:
+    if {r["image_id"] for r in records} != ids or summary["num_images"] != AUTO_IMAGES:
         raise AssertionError("an image has no entry in the auto run's json")
     check_metrics("auto json", summary, finite_only=False)
     gib = lambda v: f"{v / 2 ** 30:.3f} GiB"
@@ -2345,17 +2682,18 @@ def run_int8(seed: int, card: str) -> int:
     tempered = temper_head(sd, cfg, images[:1], DEVICE)
     images = images.to(DEVICE)
     per_call = flagship_launches(cfg8)
+    levels = len(cfg8.MODEL.RETINANET.IN_FEATURES)
     dtypes = []
-    real_dropout = pretinanet.dropout
+    real_dropout = pretinanet.dropout_levels
 
-    def watched(x, *args, **kwargs):
-        dtypes.append(x.dtype)
-        return real_dropout(x, *args, **kwargs)
+    def watched(xs, *args, **kwargs):
+        dtypes.extend(x.dtype for x in xs)
+        return real_dropout(xs, *args, **kwargs)
 
     predictor = build_predictor(cfg8, CANVAS, tempered, device=DEVICE)
     call = lambda p, s: p(images, IMAGE_SIZES, IMAGE_SIZES,
                           generator=torch.Generator().manual_seed(s))
-    pretinanet.dropout = watched
+    pretinanet.dropout_levels = watched
     try:
         torch.cuda.synchronize()
         kdropout.LAUNCHES = 0
@@ -2363,8 +2701,8 @@ def run_int8(seed: int, card: str) -> int:
         torch.cuda.synchronize()
         launches = kdropout.LAUNCHES
     finally:
-        pretinanet.dropout = real_dropout
-    if launches != per_call or dtypes != [torch.float32] * per_call:
+        pretinanet.dropout_levels = real_dropout
+    if launches != per_call or dtypes != [torch.float32] * (per_call * levels):
         raise AssertionError(f"int8 head: {launches} dropout launches on "
                              f"{sorted(set(map(str, dtypes)))}, expected {per_call} float32")
     n_valid, biggest = check_detections(dets8, IMAGE_SIZES, min_cluster=2)
@@ -2566,7 +2904,7 @@ def run_remat(seed: int, card: str, work: str):
     finally:
         torch.backends.cudnn.deterministic = deterministic
     plain, remat = runs[False], runs[True]
-    per_pass = 2 * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES)
+    per_pass = k1_per_pass(cfg)
     if plain["launches"] != {"dropout": 2 * per_pass, "focal": 1} or \
             remat["launches"] != {"dropout": 3 * per_pass, "focal": 1}:
         raise AssertionError(f"launches: without REMAT {plain['launches']}, with "
@@ -2730,10 +3068,11 @@ class RecordingDropout(KernelDropout):
 
     GATES = {}
 
-    def __call__(self, x, tower, layer, level):
-        out = super().__call__(x, tower, layer, level)
-        RecordingDropout.GATES[tower, layer, level] = pack_bits(out > 0)
-        return out
+    def __call__(self, xs, tower, layer):
+        outs = super().__call__(xs, tower, layer)
+        for level, out in enumerate(outs):
+            RecordingDropout.GATES[tower, layer, level] = pack_bits(out > 0)
+        return outs
 
 
 @contextlib.contextmanager
@@ -3022,7 +3361,7 @@ def run_parallel(seed: int, card: str, work: str, members, device=None, canvas=C
     # tensors). train_net's main, as the CLI runs it, on phase 10's JPEGs
     # warm-started from its .pkl, against train_net's main on one process;
     # the launches of the two ranks are the main path's.
-    per_step = 2 * 2 * cfg.MODEL.RETINANET.NUM_CONVS * len(cfg.MODEL.RETINANET.IN_FEATURES)
+    per_step = 2 * k1_per_pass(cfg)
     expected = (per_step, 1) if on_card else (0, 0)  # the CPU's plain versions: none
     train_opts = ["MODEL.PROBABILISTIC_MODELING.CLS_VAR_LOSS.IMPL", "pallas",
                   "MODEL.WEIGHTS", os.path.join(work, "R-50.pkl"),
@@ -3276,17 +3615,26 @@ def same_bits(a, b) -> bool:
 
 
 def dispatch_us(device) -> dict:
-    """Host microseconds per launch of K1 through its operator and through
-    its ctypes wrapper, on a (1, 256, 8, 8) bf16 tensor whose kernel takes a
-    few microseconds: 2000 launches each, in turns (operator, wrapper,
-    wrapper, operator), the median of each."""
-    x = torch.randn(1, 256, 8, 8, device=device).to(torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
+    """Host microseconds per launch of K1 through its operators and through
+    its ctypes wrappers: one (1, 256, 8, 8) bf16 tensor, and a group of five
+    levels (1, 256, 8, 8) to (1, 256, 1, 1) in one launch, whose kernels take
+    a few microseconds: 2000 launches each, in turns (operator, wrapper,
+    levels operator, levels wrapper, then back), the median of each."""
+    sizes = (8, 4, 2, 1, 1)
+    xs = [torch.randn(1, 256, h, h, device=device).to(torch.bfloat16)
+          .contiguous(memory_format=torch.channels_last) for h in sizes]
+    x = xs[0]
+    offsets = level_offsets(xs, True)
     seed = torch.tensor(12345)
     calls = {"operator": lambda: kdropout.dropout_op(x, seed, 0.2, True, 0, True),
-             "wrapper": lambda: kdropout.dropout_cuda(x, 12345, 0.2, True, 0, True)}
+             "wrapper": lambda: kdropout.dropout_cuda(x, 12345, 0.2, True, 0, True),
+             "levels_operator": lambda: kdropout.dropout_levels_op(xs, seed, 0.2, True, offsets,
+                                                                   True),
+             "levels_wrapper": lambda: kdropout.dropout_levels_cuda(xs, 12345, 0.2, True, offsets,
+                                                                    True)}
     times = {k: [] for k in calls}
-    for name in ("operator", "wrapper", "wrapper", "operator"):
+    order = list(calls)
+    for name in order + order[::-1]:
         calls[name]()
         sync(device)
         t0 = time.perf_counter()
@@ -3323,8 +3671,7 @@ def run_export(seed: int, card: str, work: str, device="cuda", canvas=CANVAS) ->
         for name, (infer, opts, batch) in cases.items():
             cfg = merge_configs(TRAIN_CFG, infer, opts)
             runs = int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS)
-            expected = (runs * 2 * cfg.MODEL.RETINANET.NUM_CONVS
-                        * len(cfg.MODEL.RETINANET.IN_FEATURES))
+            expected = runs * k1_per_pass(cfg)
             images_path = os.path.join(work, f"export_{name}.npy")
             np.save(images_path, canvas_images[:batch])
             images, sizes = torch.from_numpy(canvas_images[:batch]).to(device), all_sizes[:batch]
@@ -3419,7 +3766,9 @@ def run_export(seed: int, card: str, work: str, device="cuda", canvas=CANVAS) ->
     if dispatch is not None:
         log(f"export: K1's host cost a launch, through its operator {dispatch['operator']:.2f} "
             f"us, through its ctypes wrapper {dispatch['wrapper']:.2f} us (2000 launches on "
-            f"(1, 256, 8, 8) bf16, in turns) ({card})")
+            f"(1, 256, 8, 8) bf16, in turns); a group of five levels in one launch through "
+            f"its operator {dispatch['levels_operator']:.2f} us, through its wrapper "
+            f"{dispatch['levels_wrapper']:.2f} us ({card})")
     records["dispatch_us"] = dispatch
     return records
 
@@ -3431,8 +3780,9 @@ def main() -> int:
                         help="also trace one full-width call and one train step with "
                              "torch.profiler")
     parser.add_argument("--parent", metavar="DIR",
-                        help="a checkout of another commit (the parent's): its focal kernel "
-                             "is built and timed in turns with this one in phase 5")
+                        help="a checkout of another commit (the parent's): its dropout, "
+                             "normal (phase 2, 6) and focal (phase 5) kernels are built, held "
+                             "against this checkout's and timed in turns with them")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3461,8 +3811,8 @@ def main() -> int:
           "in parallel)", t0)
 
     t0 = time.perf_counter()
-    k1 = check_kernel(args.seed, card)
-    k3 = check_normal_kernel(args.seed, card)
+    k1 = check_kernel(args.seed, card, args.parent)
+    k3 = check_normal_kernel(args.seed, card, args.parent)
     phase("kernel (dropout and normal)", t0)
 
     t0 = time.perf_counter()
@@ -3485,7 +3835,7 @@ def main() -> int:
     phase("focal kernel", t0)
 
     t0 = time.perf_counter()
-    k1_bwd = check_dropout_backward(args.seed, card)
+    k1_bwd = check_dropout_backward(args.seed, card, args.parent)
     phase("dropout backward", t0)
 
     with tempfile.TemporaryDirectory() as work:
@@ -3580,6 +3930,27 @@ def main() -> int:
         "export_launches": export["flagship"]["served_launches"],
         "export_post_nms_launches": export["post_nms"]["served_launches"],
         "export_dispatch_us": export["dispatch_us"],
+        "export_graph_nodes": {name: rec["graph_nodes"] for name, rec in export.items()
+                               if name != "dispatch_us"},
+        "in_turns_ms": k1["in_turns_ms"],
+        "int8_in_turns_ms": k1["f32"]["in_turns_ms"],
+        "group_shapes": k1["group"]["shapes"],
+        "group_ms": k1["group"]["ms"],
+        "group_bound_ms": k1["group"]["bound_ms"],
+        "group_plain_ms": k1["group"]["plain_ms"],
+        "group_five_launches_ms": k1["group"]["five_launches_ms"],
+        "group_torch_dropout_ms": k1["group"]["torch_dropout_ms"],
+        "group_in_turns_ms": k1["group"]["in_turns_ms"],
+        "group_f32_ms": k1["group"]["f32"]["ms"],
+        "group_f32_bound_ms": k1["group"]["f32"]["bound_ms"],
+        "group_f32_five_launches_ms": k1["group"]["f32"]["five_launches_ms"],
+        "group_f32_in_turns_ms": k1["group"]["f32"]["in_turns_ms"],
+        "backward_group_shapes": k1_bwd["group"]["shapes"],
+        "backward_group_ms": k1_bwd["group"]["ms"],
+        "backward_group_bound_ms": k1_bwd["group"]["bound_ms"],
+        "backward_group_plain_ms": k1_bwd["group"]["plain_ms"],
+        "backward_group_five_launches_ms": k1_bwd["group"]["five_launches_ms"],
+        "backward_group_in_turns_ms": k1_bwd["group"]["in_turns_ms"],
     }, {
         "name": "stochastic_focal_elem",
         "route": "cuda",
@@ -3626,8 +3997,12 @@ def main() -> int:
         "bytes_bound_ms": k3["bytes_bound_ms"],
         "issue_bound_ms": k3["issue_bound_ms"],
         "mufu_bound_ms": k3["mufu_bound_ms"],
-        "cpu_max_ulps": k3["cpu_max_ulps"],
         "cpu_differ": k3["cpu_differ"],
+        "float64_max_ulps": k3["float64_max_ulps"],
+        "float64_max_abs_below": k3["float64_max_abs_below"],
+        "in_turns_ms": k3["in_turns_ms"],
+        "ptxas": k3["build"]["ptxas"],
+        "sass": k3["build"]["sass"],
         "shape": k3["shape"],
         "dtype": "float32",
         "box_chunk": k3["box_chunk"],

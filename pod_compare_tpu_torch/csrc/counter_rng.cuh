@@ -29,11 +29,11 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
       k.x += kPhiloxW0;
       k.y += kPhiloxW1;
     }
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-    const uint32_t lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-    const uint32_t lo1 = kPhiloxM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    // One wide multiply each (IMAD.WIDE.U32): its high and low words.
+    const uint64_t p0 = (uint64_t)kPhiloxM0 * c.x;
+    const uint64_t p1 = (uint64_t)kPhiloxM1 * c.z;
+    c = make_uint4((uint32_t)(p1 >> 32) ^ c.y ^ k.x, (uint32_t)p1,
+                   (uint32_t)(p0 >> 32) ^ c.w ^ k.y, (uint32_t)p0);
   }
   return c;
 }

@@ -5,7 +5,7 @@
 // The TPU kernel draws its bits from the chip's PRNG seeded per (1024, C)
 // row block. Hopper has no such generator, so the bits here come from
 // Philox4x32-10 keyed on (seed, element index): any launch can replay a mask
-// from its seed alone. The backward (`pod_dropout_backward`, the port of
+// from its seed alone. The backward (`pod_dropout_backward_levels`, the port of
 // `_hw_dropout_bwd`) does exactly that on the cotangent, so no mask is ever
 // stored.
 //
@@ -22,53 +22,110 @@
 // where out, the forward's output, is kept by autograd anyway as the next
 // conv's input.
 //
+// One launch takes a group of up to 8 tensors ("levels": the head runs
+// one mask draw per (run, tower, layer) over the five FPN levels P3-P7,
+// level l at the stream offset that follows levels < l), each with its
+// own pointers, inner, outer and offset, under one seed, threshold, scale
+// and relu; a single tensor is the group of one. The levels' chunks of 8
+// consecutive inner elements form one flat range; thread t of the grid
+// takes chunks t, t + stride, ... of it, walking the levels' chunk
+// prefix in order (unrolled over the 8 slots, so every field is read from
+// the kernel's parameters at a fixed place), so the threads differ by at
+// most one chunk over the whole group however small its levels are.
+//
 // Bound: memory. It reads x once and writes out once; for one
 // (run, tower, layer) of the MC bank at batch 2 in bf16 the P3-P7 levels
 // hold 19,620 x 256 x 2 elements, about 20 MB each way, ~12 us at
-// 3.35 TB/s. The design reads and writes 16 bytes a thread per access and,
-// in the batch-shared case, draws each mask word once and applies it to
-// every image of the batch, which divides the Philox work by the batch.
-// The backward reads g and out and writes dx: three passes where the
-// forward makes two, ~27 us for a per-sample P3 level of a training step
-// (4 x 256 x 92 x 160 in bf16, 30.1 MB each).
+// 3.35 TB/s: one launch, where one launch per level left P5-P7 (0.56,
+// 0.15 and 0.04 us of bytes) to a launch's fixed cost. The design reads
+// and writes 16 bytes a thread per access and, in the batch-shared case,
+// draws each mask word once and applies it to every image of the batch,
+// which divides the Philox work by the batch; a chunk's loads of its
+// images (up to four at a time) are all issued before the mask is drawn
+// and before any store, so the Philox rounds run while they are in flight. The grid is
+// one wave of resident blocks (grid.cuh). The backward reads g and out
+// and writes dx: three passes where the forward makes two, ~27 us for a
+// per-sample P3 level of a training step (4 x 256 x 92 x 160 in bf16,
+// 30.1 MB each).
 //
 // The wrapper (ops/kernels/dropout.py) guarantees: inner % 8 == 0,
-// offset % 4 == 0, both pointers 16-byte aligned, x and out not aliased.
+// offset % 4 == 0, every pointer 16-byte aligned, no output aliasing an
+// input, at most 8 levels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "counter_rng.cuh"
+#include "grid.cuh"
+
+// One level of a grouped launch, as the wrapper passes it. The forward
+// reads x; the backward reads g from `x` and, with relu, the forward's
+// output from `gate`.
+struct PodDropoutLevel {
+  const void* x;
+  const void* gate;
+  void* out;
+  long long inner;
+  long long outer;
+  unsigned long long offset;
+};
 
 namespace {
 
-__device__ __forceinline__ float apply(float v, bool keep, bool relu, float scale) {
-  if (relu) v = v > 0.f ? v : 0.f;
-  return keep ? v * scale : 0.f;
+constexpr int kThreads = 256;
+constexpr int kMaxLevels = 8;
+
+// A group by value, as the kernel's parameters (under 0.5 KB).
+template <typename T>
+struct Levels {
+  const T* x[kMaxLevels];
+  const T* gate[kMaxLevels];
+  T* out[kMaxLevels];
+  int64_t inner[kMaxLevels];
+  int64_t outer[kMaxLevels];
+  uint64_t offset[kMaxLevels];
+  int64_t chunk_end[kMaxLevels];  // chunks of levels 0..l, unused slots the total
+  int count;
+};
+
+// Eight elements of one chunk, as loaded: two float4 (f32) or one uint4 (bf16).
+template <typename T>
+struct Raw;
+template <>
+struct Raw<float> {
+  float4 a, b;
+};
+template <>
+struct Raw<__nv_bfloat16> {
+  uint4 a;
+};
+
+__device__ __forceinline__ Raw<float> load8(const float* p) {
+  return {reinterpret_cast<const float4*>(p)[0], reinterpret_cast<const float4*>(p)[1]};
 }
 
-// Eight elements of one chunk: two float4 (f32) or one uint4 (bf16).
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+__device__ __forceinline__ Raw<__nv_bfloat16> load8(const __nv_bfloat16* p) {
+  return {reinterpret_cast<const uint4*>(p)[0]};
 }
 
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+__device__ __forceinline__ void unpack(const Raw<float>& r, float* v) {
+  v[0] = r.a.x; v[1] = r.a.y; v[2] = r.a.z; v[3] = r.a.w;
+  v[4] = r.b.x; v[5] = r.b.y; v[6] = r.b.z; v[7] = r.b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 raw = reinterpret_cast<const uint4*>(p)[0];
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+__device__ __forceinline__ void unpack(const Raw<__nv_bfloat16>& r, float* v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.a);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     v[2 * k] = __bfloat162float(h[k].x);
     v[2 * k + 1] = __bfloat162float(h[k].y);
   }
+}
+
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
 __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
@@ -94,117 +151,143 @@ __device__ __forceinline__ void keep8(uint64_t offset, int64_t c, uint2 key, uin
   for (int k = 0; k < 8; ++k) keep[k] = bits[k] < thresh;
 }
 
-// One thread per chunk of 8 consecutive elements of the inner range, in a
-// grid-stride loop; the chunk's mask applies to all `outer` copies.
-template <typename T>
-__global__ void dropout_kernel(const T* __restrict__ x, T* __restrict__ out,
-                               int64_t inner, int64_t outer, uint64_t offset,
-                               uint2 key, uint32_t thresh, float scale, int relu) {
-  const int64_t chunks = inner / 8;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < chunks; c += stride) {
-    bool keep[8];
-    keep8(offset, c, key, thresh, keep);
-    for (int64_t n = 0; n < outer; ++n) {
-      const int64_t base = n * inner + 8 * c;
-      float v[8];
-      load8(x + base, v);
+// Chunk c of one level: the same 8 inner elements of each of its `outer`
+// images, kImages at a time, their loads issued before the mask is drawn
+// and before any store. Forward: out = keep ? relu?(x) * scale : 0.
+// Backward (x holds g, gate the forward's output): out = keep && (!relu ||
+// gate > 0) ? g * scale : 0.
+template <typename T, bool kBackward, int kImages>
+__device__ __forceinline__ void chunk(const T* __restrict__ x, const T* __restrict__ gate,
+                                      T* __restrict__ out, int64_t inner, int64_t outer,
+                                      uint64_t offset, int64_t c, uint2 key, uint32_t thresh,
+                                      float scale, bool relu) {
+  bool keep[8];
+  for (int64_t n0 = 0; n0 < outer; n0 += kImages) {
+    Raw<T> xs[kImages], gs[kImages];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = apply(v[k], keep[k], relu != 0, scale);
-      store8(out + base, v);
-    }
-  }
-}
-
-// The backward: the same chunks and the same mask, replayed from the seed,
-// on the cotangent g. With relu, `gate` is the forward's output, positive
-// exactly where the forward kept a positive input; no mask is stored.
-template <typename T>
-__global__ void dropout_backward_kernel(const T* __restrict__ g, const T* __restrict__ gate,
-                                        T* __restrict__ out, int64_t inner, int64_t outer,
-                                        uint64_t offset, uint2 key, uint32_t thresh,
-                                        float scale, int relu) {
-  const int64_t chunks = inner / 8;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < chunks; c += stride) {
-    bool keep[8];
-    keep8(offset, c, key, thresh, keep);
-    for (int64_t n = 0; n < outer; ++n) {
-      const int64_t base = n * inner + 8 * c;
-      float v[8], y[8];
-      load8(g + base, v);
-      if (relu) load8(gate + base, y);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        v[k] = (keep[k] && (!relu || y[k] > 0.f)) ? v[k] * scale : 0.f;
+    for (int j = 0; j < kImages; ++j) {
+      if (n0 + j < outer) {
+        const int64_t base = (n0 + j) * inner + 8 * c;
+        xs[j] = load8(x + base);
+        if (kBackward && relu) gs[j] = load8(gate + base);
       }
-      store8(out + base, v);
+    }
+    if (n0 == 0) keep8(offset, c, key, thresh, keep);
+#pragma unroll
+    for (int j = 0; j < kImages; ++j) {
+      if (n0 + j < outer) {
+        float v[8], y[8];
+        unpack(xs[j], v);
+        if (kBackward && relu) unpack(gs[j], y);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (kBackward) {
+            v[k] = (keep[k] && (!relu || y[k] > 0.f)) ? v[k] * scale : 0.f;
+          } else {
+            const float a = relu ? (v[k] > 0.f ? v[k] : 0.f) : v[k];
+            v[k] = keep[k] ? a * scale : 0.f;
+          }
+        }
+        store8(out + (n0 + j) * inner + 8 * c, v);
+      }
     }
   }
 }
 
-int grid_for(int64_t inner, int threads) {
-  const int64_t chunks = inner / 8;
-  const int64_t max_blocks = 132 * 32;
-  const int64_t want = (chunks + threads - 1) / threads;
-  return (int)(want < max_blocks ? want : max_blocks);
+// kImages: the registers of that many images' chunks are held at once;
+// the launch takes the smallest of 1, 2, 4 that covers the group's largest
+// outer (per-sample masks 1, the MC bank's batch 2), so no thread holds
+// registers for images it does not have.
+template <typename T, bool kBackward, int kImages>
+__global__ void __launch_bounds__(kThreads)
+    dropout_levels_kernel(const Levels<T> lv, uint2 key, uint32_t thresh, float scale, int relu) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t start = 0;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (l < lv.count) {
+      for (; c < lv.chunk_end[l]; c += stride) {
+        chunk<T, kBackward, kImages>(lv.x[l], lv.gate[l], lv.out[l], lv.inner[l], lv.outer[l],
+                                     lv.offset[l], c - start, key, thresh, scale, relu != 0);
+      }
+      start = lv.chunk_end[l];
+    }
+  }
+}
+
+template <typename T, bool kBackward, int kImages>
+cudaError_t launch_images(const Levels<T>& lv, int64_t chunks, uint2 key, uint32_t thresh,
+                          float scale, int relu, cudaStream_t stream) {
+  static WaveCache cache;  // one per instance of this function, so per kernel instance
+  int blocks = 0;
+  const cudaError_t err = wave_blocks(cache, dropout_levels_kernel<T, kBackward, kImages>,
+                                      kThreads, (chunks + kThreads - 1) / kThreads, &blocks);
+  if (err != cudaSuccess) return err;
+  dropout_levels_kernel<T, kBackward, kImages><<<blocks, kThreads, 0, stream>>>(
+      lv, key, thresh, scale, relu);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kBackward>
+cudaError_t launch(const PodDropoutLevel* levels, int count, uint2 key, uint32_t thresh,
+                   float scale, int relu, cudaStream_t s) {
+  Levels<T> lv = {};
+  int64_t chunks = 0, outer = 1;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (l < count) {
+      const PodDropoutLevel& d = levels[l];
+      if (d.inner <= 0 || d.outer <= 0 || d.inner % 8 != 0 || d.offset % 4 != 0 ||
+          d.x == nullptr || d.out == nullptr || (kBackward && relu && d.gate == nullptr)) {
+        return cudaErrorInvalidValue;
+      }
+      lv.x[l] = static_cast<const T*>(d.x);
+      lv.gate[l] = static_cast<const T*>(d.gate);
+      lv.out[l] = static_cast<T*>(d.out);
+      lv.inner[l] = d.inner;
+      lv.outer[l] = d.outer;
+      lv.offset[l] = d.offset;
+      chunks += d.inner / 8;
+      outer = d.outer > outer ? d.outer : outer;
+    }
+    lv.chunk_end[l] = chunks;
+  }
+  lv.count = count;
+  if (outer == 1) return launch_images<T, kBackward, 1>(lv, chunks, key, thresh, scale, relu, s);
+  if (outer == 2) return launch_images<T, kBackward, 2>(lv, chunks, key, thresh, scale, relu, s);
+  return launch_images<T, kBackward, 4>(lv, chunks, key, thresh, scale, relu, s);
+}
+
+template <bool kBackward>
+int launch_dtype(const PodDropoutLevel* levels, int count, int dtype, unsigned long long seed,
+                 unsigned int thresh, float scale, int relu, void* stream) {
+  if (levels == nullptr || count <= 0 || count > kMaxLevels) return (int)cudaErrorInvalidValue;
+  const uint2 key = philox_key(seed);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch<float, kBackward>(levels, count, key, thresh, scale, relu, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, kBackward>(levels, count, key, thresh, scale, relu, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. outer = batch when the mask is shared
-// across the batch, else 1 (and inner = every element). Returns the launch's
-// cudaError_t; 0 means it was queued on `stream`.
-extern "C" int pod_dropout_forward(const void* x, void* out, int dtype, long long inner,
-                                   long long outer, unsigned long long offset,
-                                   unsigned long long seed, unsigned int thresh, float scale,
-                                   int relu, void* stream) {
-  if (inner <= 0 || outer <= 0 || inner % 8 != 0 || offset % 4 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const uint2 key = philox_key(seed);
-  const int threads = 256;
-  const int blocks = grid_for(inner, threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dropout_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), inner, outer, offset, key,
-        thresh, scale, relu);
-  } else if (dtype == 1) {
-    dropout_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), inner, outer,
-        offset, key, thresh, scale, relu);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+// dtype: 0 = float32, 1 = bfloat16, for every level. Per level, outer =
+// batch when the mask is shared across the batch, else 1 (and inner =
+// every element). Returns the launch's cudaError_t; 0 means it was queued
+// on `stream`.
+extern "C" int pod_dropout_forward_levels(const PodDropoutLevel* levels, int count, int dtype,
+                                          unsigned long long seed, unsigned int thresh,
+                                          float scale, int relu, void* stream) {
+  return launch_dtype<false>(levels, count, dtype, seed, thresh, scale, relu, stream);
 }
 
-// The backward of pod_dropout_forward under the same (seed, offset, thresh,
-// scale, relu): out = keep && (!relu || gate > 0) ? g * scale : 0, where
-// gate is the forward's output. Same layout contract as the forward.
-extern "C" int pod_dropout_backward(const void* g, const void* gate, void* out, int dtype,
-                                    long long inner, long long outer, unsigned long long offset,
-                                    unsigned long long seed, unsigned int thresh, float scale,
-                                    int relu, void* stream) {
-  if (inner <= 0 || outer <= 0 || inner % 8 != 0 || offset % 4 != 0 ||
-      (relu && gate == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const uint2 key = philox_key(seed);
-  const int threads = 256;
-  const int blocks = grid_for(inner, threads);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dropout_backward_kernel<float><<<blocks, threads, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(gate), static_cast<float*>(out),
-        inner, outer, offset, key, thresh, scale, relu);
-  } else if (dtype == 1) {
-    dropout_backward_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(gate),
-        static_cast<__nv_bfloat16*>(out), inner, outer, offset, key, thresh, scale, relu);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+// The backward of pod_dropout_forward_levels under the same (seed, offsets,
+// thresh, scale, relu): per level out = keep && (!relu || gate > 0) ? g *
+// scale : 0, with g in each level's `x` and the forward's output in its
+// `gate`.
+extern "C" int pod_dropout_backward_levels(const PodDropoutLevel* levels, int count, int dtype,
+                                           unsigned long long seed, unsigned int thresh,
+                                           float scale, int relu, void* stream) {
+  return launch_dtype<true>(levels, count, dtype, seed, thresh, scale, relu, stream);
 }

@@ -5,8 +5,10 @@ captures the predictor's forward (``predictor.PipelineModule``: uint8
 canvas -> normalize -> R50-FPN -> the head bank -> the candidate core -> the
 mode or the post-NMS merge -> rescale) once, at export time, and
 ``torch.export.save`` writes it with its weights. The serving host needs
-torch and this package's three operators, ``pod_compare_tpu_torch::dropout``
-(the dropout kernel of ``csrc/dropout.cu`` on CUDA),
+torch and this package's operators, ``pod_compare_tpu_torch::dropout_levels``
+(the dropout kernel of ``csrc/dropout.cu`` on CUDA, one node and one launch
+per (run, tower, layer) over the FPN levels; ``::dropout``, its one-tensor
+form, which programs saved before it call),
 ``pod_compare_tpu_torch::normal`` (the normals of the Monte-Carlo sampling
 impls, ``csrc/normal.cu`` on CUDA) and
 ``pod_compare_tpu_torch::greedy_sequential_clusters`` (the post-NMS merge's
@@ -58,6 +60,7 @@ from pod_compare_tpu_torch.inference.seeds import draw_call_seeds
 
 FORMAT = "pod_compare_tpu_torch.serving/1"
 REQUIRED_OPS = ("pod_compare_tpu_torch::dropout",
+                "pod_compare_tpu_torch::dropout_levels",
                 "pod_compare_tpu_torch::greedy_sequential_clusters",
                 "pod_compare_tpu_torch::normal")
 _PIPELINE_FILE = "pipeline.pt2"

@@ -1,16 +1,18 @@
 """Probabilistic RetinaNet: normalize -> R50 -> FPN -> probabilistic head.
 
 Counterpart of ``pod_compare_tpu/models/retinanet.py``. The head's conv
-tower runs once per level and feeds both the mean and the variance output
-convs; outputs are (N, H·W·A, k) float32 tensors concatenated over levels
-in the anchor layout of ``ops.anchors``. Parameter names follow the
+towers run layer by layer over the five levels (each level's chain is the
+JAX head's, in another order) and feed both the mean and the variance
+output convs; outputs are (N, H·W·A, k) float32 tensors concatenated over
+levels in the anchor layout of ``ops.anchors``. Parameter names follow the
 reference's detectron2 namespace (``backbone.bottom_up.*``,
 ``head.cls_subnet.{0,2,4,6}``, ``head.cls_score`` ...).
 
 Dropout in the towers comes from outside, as a ``TowerDropout``: one object
 per stochastic head pass, called after each tower conv with the raw conv
-output and returning ReLU-then-dropout of it. ``KernelDropout`` draws the
-masks with the counter-based dropout kernel (differentiable, its backward
+outputs of every level and returning ReLU-then-dropout of each.
+``KernelDropout`` draws the masks with the counter-based dropout kernel, one
+launch per (tower, layer) over the levels (differentiable, its backward
 replaying the masks from their seeds, when autograd records the pass);
 ``InjectedMasks`` multiplies by given masks (the tests feed the JAX package
 the same masks). Without one, the towers apply a plain ReLU.
@@ -40,22 +42,23 @@ from pod_compare_tpu_torch.models.fpn import FPN, FPN_STRIDES
 from pod_compare_tpu_torch.models.layers import Conv2d
 from pod_compare_tpu_torch.models.resnet import ResNet
 from pod_compare_tpu_torch.ops.anchors import AnchorGenerator
-from pod_compare_tpu_torch.ops.kernels.dropout import dropout_autograd, dropout_op
+from pod_compare_tpu_torch.ops.kernels.dropout import dropout_levels_autograd, dropout_levels_op
 from pod_compare_tpu_torch.ops.quant import quantized_conv3x3
 from pod_compare_tpu_torch.parallel.mesh import BatchShard
 
 TOWERS = ("cls_subnet", "bbox_subnet")
-# The forward-only dropout of a stochastic pass: the operator, whose seed is
-# a tensor.
-dropout = dropout_op
+# The forward-only dropout of a stochastic pass over the levels: the
+# operator, whose seed is a tensor.
+dropout_levels = dropout_levels_op
 HEAD_QUANT_MODES = ("none", "int8")
 
 
 class TowerDropout:
-    """ReLU + dropout after conv `layer` of tower `tower` (0 cls, 1 bbox) at
-    FPN level `level`; x is the raw conv output."""
+    """ReLU + dropout after conv `layer` of tower `tower` (0 cls, 1 bbox);
+    xs are the raw conv outputs of every FPN level, in level order, and the
+    result is a list alike."""
 
-    def __call__(self, x: torch.Tensor, tower: int, layer: int, level: int) -> torch.Tensor:
+    def __call__(self, xs: List[torch.Tensor], tower: int, layer: int) -> List[torch.Tensor]:
         raise NotImplementedError
 
 
@@ -63,11 +66,12 @@ class KernelDropout(TowerDropout):
     """One stochastic head pass through the dropout kernel with fused ReLU.
 
     `seeds[tower][layer]` seeds one mask draw per (tower, layer) that covers
-    every FPN level: level l uses the stream indices that follow those of
-    levels < l (`level_offsets`). With `batch_shared` the mask of each level
-    is one (H, W, C) pattern broadcast over the batch. When autograd records
-    the pass, the dropout is differentiable and its backward replays the
-    mask from the seed. Otherwise it is the operator ``dropout_op``, whose
+    every FPN level, one launch over the levels: level l uses the stream
+    indices that follow those of levels < l (`level_offsets`). With
+    `batch_shared` the mask of each level is one (H, W, C) pattern
+    broadcast over the batch. When autograd records the pass, the dropout
+    is differentiable and its backward replays the masks from the seed in
+    one launch. Otherwise it is the operator ``dropout_levels_op``, whose
     seed stays a tensor: a (2, num_convs) int64 tensor of seeds on the CPU
     (nested lists are made one) is then an input of an exported program, not
     a constant baked into it.
@@ -79,11 +83,11 @@ class KernelDropout(TowerDropout):
         self.level_offsets = list(level_offsets)
         self.batch_shared = batch_shared
 
-    def __call__(self, x, tower, layer, level):
-        args = (self.rate, self.batch_shared, self.level_offsets[level], True)
-        if torch.is_grad_enabled() and x.requires_grad:
-            return dropout_autograd(x, int(self.seeds[tower, layer]), *args)
-        return dropout(x, self.seeds[tower, layer], *args)
+    def __call__(self, xs, tower, layer):
+        args = (self.rate, self.batch_shared, self.level_offsets[:len(xs)], True)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+            return dropout_levels_autograd(xs, int(self.seeds[tower, layer]), *args)
+        return dropout_levels(xs, self.seeds[tower, layer], *args)
 
 
 class InjectedMasks(TowerDropout):
@@ -94,10 +98,17 @@ class InjectedMasks(TowerDropout):
     def __init__(self, masks):
         self.masks = masks
 
-    def __call__(self, x, tower, layer, level):
-        mask = self.masks[tower][layer][level].to(device=x.device, dtype=x.dtype)
-        nchw = mask.permute(2, 0, 1)[None] if mask.dim() == 3 else mask.permute(0, 3, 1, 2)
-        return F.relu(x) * nchw
+    def __call__(self, xs, tower, layer):
+        outs = []
+        for x, mask in zip(xs, self.masks[tower][layer]):
+            mask = mask.to(device=x.device, dtype=x.dtype)
+            nchw = mask.permute(2, 0, 1)[None] if mask.dim() == 3 else mask.permute(0, 3, 1, 2)
+            outs.append(F.relu(x) * nchw)
+        return outs
+
+
+def _relu_levels(xs, tower, layer):
+    return [F.relu(x) for x in xs]
 
 
 def level_offsets(features: Sequence[torch.Tensor], batch_shared: bool,
@@ -206,18 +217,19 @@ class ProbabilisticRetinaNetHead(nn.Module):
 
     def rest(self, prefix, tower_dropout: Optional[TowerDropout] = None):
         """ReLU (+ dropout) after conv 0, convs 1.. with ReLU (+ dropout),
-        then the output convs; float32 outputs concatenated over levels."""
-        act = tower_dropout or (lambda x, tower, layer, level: F.relu(x))
+        then the output convs; float32 outputs concatenated over levels.
+        The towers run layer by layer, each conv at every level and then one
+        dropout call over the levels' outputs."""
+        act = tower_dropout or _relu_levels
+        feats = []
+        for t in range(2):
+            xs = act(list(prefix[t]), t, 0)
+            for layer in range(1, self.num_convs):
+                xs = act([self.tower_conv(t, layer, x) for x in xs], t, layer)
+            feats.append([x.to(self.compute_dtype) for x in xs])  # the int8 towers' float32 too
         outs: Dict[str, list] = {"box_cls": [], "box_delta": [], "box_cls_var": [],
                                  "box_reg_var": []}
-        for level in range(len(prefix[0])):
-            feats = []
-            for t in range(2):
-                x = act(prefix[t][level], t, 0, level)
-                for layer in range(1, self.num_convs):
-                    x = act(self.tower_conv(t, layer, x), t, layer, level)
-                feats.append(x.to(self.compute_dtype))  # the int8 towers' float32 too
-            c, b = feats
+        for c, b in zip(*feats):
             outs["box_cls"].append(self._flatten(self.cls_score(c), self.num_classes))
             outs["box_delta"].append(self._flatten(self.bbox_pred(b), 4))
             if self.cls_var is not None:

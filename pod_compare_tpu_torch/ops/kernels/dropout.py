@@ -25,6 +25,15 @@ and CUDA tensors to the kernel; anything else raises. ``dropout_autograd``
 is the differentiable form. ``LAUNCHES`` counts kernel launches, forward
 and backward alike.
 
+``dropout_levels`` takes a list of up to ``MAX_LEVELS`` tensors ("levels")
+with a stream offset each, under one seed, rate, mask kind and relu: the
+head's mask draw of one (run, tower, layer) over the five FPN levels, one
+launch (``pod_dropout_forward_levels``) where ``dropout`` per level takes
+five. Its output is ``dropout`` of each level at its offset, bit for bit
+(``dropout_levels_plain``); ``dropout_levels_backward`` and
+``dropout_levels_autograd`` are its backward (one launch) and its
+differentiable form. A single tensor is launched as the group of one.
+
 ``dropout_op`` is the forward registered as the PyTorch operator
 ``pod_compare_tpu_torch::dropout``, with the seed as an int64 0-d tensor on
 the CPU: ``torch.export`` records it as one node whose seed is an input of
@@ -32,11 +41,15 @@ the program, as the Mosaic custom call is in the JAX package's StableHLO,
 so every served call draws fresh masks. Its CPU kernel is the plain
 version, its CUDA kernel ``dropout_cuda`` (the seed is read on the host,
 with no device sync), and its fake kernel gives the output's shape.
+``dropout_levels_op`` is ``dropout_levels`` as the operator
+``pod_compare_tpu_torch::dropout_levels`` (a list in, a list out; one node
+of a program per (run, tower, layer)), registered the same way.
 """
 
 import ctypes
 import functools
 import math
+from typing import List, Sequence
 
 import torch
 
@@ -46,6 +59,7 @@ _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_LEVELS = 8  # tensors one launch takes (csrc/dropout.cu's kMaxLevels)
 
 
 def keep_threshold(rate: float) -> int:
@@ -156,7 +170,47 @@ def dropout_backward_plain(
     return _restore_order(apply_keep(flat_g, keep, rate), g)
 
 
+def dropout_levels_plain(
+    xs: Sequence[torch.Tensor],
+    seed: int,
+    rate: float,
+    batch_shared: bool,
+    offsets: Sequence[int],
+    relu: bool = False,
+) -> List[torch.Tensor]:
+    """The grouped kernel's function in PyTorch ops: `dropout_plain` of
+    each level at its offset."""
+    _check_group(xs, offsets)
+    return [dropout_plain(x, seed, rate, batch_shared, o, relu) for x, o in zip(xs, offsets)]
+
+
+def dropout_levels_backward_plain(
+    gs: Sequence[torch.Tensor],
+    outs: Sequence[torch.Tensor],
+    seed: int,
+    rate: float,
+    batch_shared: bool,
+    offsets: Sequence[int],
+    relu: bool = False,
+) -> List[torch.Tensor]:
+    """The grouped backward's function in PyTorch ops: `dropout_backward_plain`
+    of each level at its offset."""
+    _check_group(outs, offsets)
+    return [dropout_backward_plain(g, out, seed, rate, batch_shared, o, relu)
+            for g, out, o in zip(gs, outs, offsets)]
+
+
 # ------------------------------------------------------------ kernel
+def _check_group(xs: Sequence[torch.Tensor], offsets: Sequence[int]) -> None:
+    """A group the kernel takes: 1 to MAX_LEVELS tensors of one dtype on one
+    device, an offset each."""
+    if not 1 <= len(xs) <= MAX_LEVELS or len(offsets) != len(xs):
+        raise ValueError(f"dropout_levels takes 1 to {MAX_LEVELS} tensors with an offset each, "
+                         f"got {len(xs)} tensors and {len(offsets)} offsets")
+    if any(x.dtype != xs[0].dtype or x.device != xs[0].device for x in xs):
+        raise ValueError("dropout_levels needs every level in one dtype on one device")
+
+
 def _layout(x: torch.Tensor, batch_shared: bool, offset: int):
     """(outer, inner) of the launch; raises on what the kernel does not take."""
     if x.dtype not in _DTYPE_CODES:
@@ -175,35 +229,100 @@ def _layout(x: torch.Tensor, batch_shared: bool, offset: int):
     return outer, inner
 
 
+class _Level(ctypes.Structure):
+    """csrc/dropout.cu's PodDropoutLevel."""
+
+    _fields_ = [("x", ctypes.c_void_p), ("gate", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("inner", ctypes.c_longlong), ("outer", ctypes.c_longlong),
+                ("offset", ctypes.c_ulonglong)]
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     from pod_compare_tpu_torch.ops.kernels import _build
 
     lib = _build.load("dropout.cu")
-    common = [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_ulonglong,
-        ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.pod_dropout_forward.argtypes = [ctypes.c_void_p] * 2 + common
-    lib.pod_dropout_backward.argtypes = [ctypes.c_void_p] * 3 + common
-    lib.pod_dropout_forward.restype = lib.pod_dropout_backward.restype = ctypes.c_int
+    for fn in (lib.pod_dropout_forward_levels, lib.pod_dropout_backward_levels):
+        fn.argtypes = [ctypes.POINTER(_Level), ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong,
+                       ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(fn, pointers, x, outer, inner, offset, seed, rate, relu) -> None:
-    """Launch `fn` on x's device and PyTorch's current stream."""
+def _launch(fn, levels, like: torch.Tensor, seed: int, rate: float, relu: bool) -> None:
+    """Launch `fn` on a group of `levels` (x, gate, out pointers; inner,
+    outer, offset) on like's device and PyTorch's current stream."""
     global LAUNCHES
-    if any(p % 16 for p in pointers):
+    if any(p % 16 for level in levels for p in level[:3]):
         raise ValueError("dropout needs 16-byte aligned storage")
-    with torch.cuda.device(x.device):
-        err = fn(
-            *pointers, _DTYPE_CODES[x.dtype], inner, outer, offset,
-            seed & 0xFFFFFFFFFFFFFFFF, keep_threshold(rate), keep_scale(rate, x.dtype),
-            int(relu), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    group = (_Level * len(levels))(*(_Level(*level) for level in levels))
+    with torch.cuda.device(like.device):
+        err = fn(group, len(levels), _DTYPE_CODES[like.dtype], seed & 0xFFFFFFFFFFFFFFFF,
+                 keep_threshold(rate), keep_scale(rate, like.dtype), int(relu),
+                 torch.cuda.current_stream(like.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout kernel launch failed with cudaError_t {err}")
     LAUNCHES += 1
+
+
+def dropout_levels_cuda(
+    xs: Sequence[torch.Tensor],
+    seed: int,
+    rate: float,
+    batch_shared: bool,
+    offsets: Sequence[int],
+    relu: bool = False,
+) -> List[torch.Tensor]:
+    """One launch of the grouped forward of csrc/dropout.cu over `xs`, level
+    l at stream offset `offsets[l]`."""
+    _check_group(xs, offsets)
+    if xs[0].device.type != "cuda":
+        raise ValueError(f"dropout_levels_cuda needs CUDA tensors, got {xs[0].device}")
+    outs, levels = [], []
+    for x, offset in zip(xs, offsets):
+        outer, inner = _layout(x, batch_shared, offset)
+        out = torch.empty_like(x)
+        outs.append(out)
+        levels.append((x.data_ptr(), 0, out.data_ptr(), inner, outer, offset))
+    _launch(_library().pod_dropout_forward_levels, levels, xs[0], seed, rate, relu)
+    return outs
+
+
+def dropout_levels_backward_cuda(
+    gs: Sequence[torch.Tensor],
+    outs: Sequence[torch.Tensor],
+    seed: int,
+    rate: float,
+    batch_shared: bool,
+    offsets: Sequence[int],
+    relu: bool = False,
+) -> List[torch.Tensor]:
+    """One launch of the grouped backward of csrc/dropout.cu on the
+    cotangents `gs`, each brought to the memory format of its level's
+    forward output in `outs`."""
+    _check_group(outs, offsets)
+    if len(gs) != len(outs):
+        raise ValueError(f"{len(gs)} cotangents for {len(outs)} levels")
+    device = outs[0].device
+    if device.type != "cuda" or any(g.device != device for g in gs):
+        raise ValueError(f"dropout_levels_backward_cuda needs CUDA tensors, got "
+                         f"{[str(g.device) for g in gs]} and {device}")
+    # The cotangents in their outputs' memory formats are held in `held`
+    # until the launch is queued: one freed earlier could be handed to the
+    # next level's copy before the kernel reads it.
+    dxs, held, levels = [], [], []
+    for g, out, offset in zip(gs, outs, offsets):
+        if out.shape != g.shape or out.dtype != g.dtype:
+            raise ValueError("dropout_backward needs the cotangent and the forward's output alike")
+        g = g.contiguous(memory_format=memory_format(out))
+        outer, inner = _layout(g, batch_shared, offset)
+        _layout(out, batch_shared, offset)
+        dx = torch.empty_like(g)
+        held.append(g)
+        dxs.append(dx)
+        levels.append((g.data_ptr(), out.data_ptr(), dx.data_ptr(), inner, outer, offset))
+    _launch(_library().pod_dropout_backward_levels, levels, outs[0], seed, rate, relu)
+    return dxs
 
 
 def dropout_cuda(
@@ -214,14 +333,10 @@ def dropout_cuda(
     offset: int = 0,
     relu: bool = False,
 ) -> torch.Tensor:
-    """Launch the forward of csrc/dropout.cu."""
+    """Launch the forward of csrc/dropout.cu on one tensor: the group of one."""
     if x.device.type != "cuda":
         raise ValueError(f"dropout_cuda needs a CUDA tensor, got {x.device}")
-    outer, inner = _layout(x, batch_shared, offset)
-    out = torch.empty_like(x)
-    _launch(_library().pod_dropout_forward, (x.data_ptr(), out.data_ptr()), x, outer, inner,
-            offset, seed, rate, relu)
-    return out
+    return dropout_levels_cuda([x], seed, rate, batch_shared, [offset], relu)[0]
 
 
 def dropout_backward_cuda(
@@ -234,18 +349,10 @@ def dropout_backward_cuda(
     relu: bool = False,
 ) -> torch.Tensor:
     """Launch the backward of csrc/dropout.cu on the cotangent g, brought to
-    the memory format of the forward's output `out`."""
+    the memory format of the forward's output `out`: the group of one."""
     if g.device.type != "cuda" or out.device != g.device:
         raise ValueError(f"dropout_backward_cuda needs CUDA tensors, got {g.device}, {out.device}")
-    if out.shape != g.shape or out.dtype != g.dtype:
-        raise ValueError("dropout_backward needs the cotangent and the forward's output alike")
-    g = g.contiguous(memory_format=memory_format(out))
-    outer, inner = _layout(g, batch_shared, offset)
-    _layout(out, batch_shared, offset)
-    dx = torch.empty_like(g)
-    _launch(_library().pod_dropout_backward, (g.data_ptr(), out.data_ptr(), dx.data_ptr()), g,
-            outer, inner, offset, seed, rate, relu)
-    return dx
+    return dropout_levels_backward_cuda([g], [out], seed, rate, batch_shared, [offset], relu)[0]
 
 
 def dropout(
@@ -326,20 +433,6 @@ def dropout_backward(
     raise ValueError(f"dropout_backward has no path for device {g.device}")
 
 
-class _Dropout(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, seed, rate, batch_shared, offset, relu):
-        out = dropout(x, seed, rate, batch_shared, offset, relu)
-        ctx.save_for_backward(out)
-        ctx.args = (seed, rate, batch_shared, offset, relu)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        (out,) = ctx.saved_tensors
-        return dropout_backward(g, out, *ctx.args), None, None, None, None, None
-
-
 def dropout_autograd(
     x: torch.Tensor,
     seed: int,
@@ -348,5 +441,110 @@ def dropout_autograd(
     offset: int = 0,
     relu: bool = False,
 ) -> torch.Tensor:
-    """`dropout` with a backward that replays the mask from the seed."""
-    return _Dropout.apply(x, seed, rate, batch_shared, offset, relu)
+    """`dropout` with a backward that replays the mask from the seed: the
+    group of one of `dropout_levels_autograd`."""
+    return dropout_levels_autograd([x], seed, rate, batch_shared, [offset], relu)[0]
+
+
+# ------------------------------------------------------------ grouped levels
+def dropout_levels(
+    xs: Sequence[torch.Tensor],
+    seed: int,
+    rate: float,
+    batch_shared: bool,
+    offsets: Sequence[int],
+    relu: bool = False,
+) -> List[torch.Tensor]:
+    """`dropout` of each level of `xs` at its offset under one seed: the
+    plain version for CPU tensors, one launch of the grouped kernel for CUDA
+    tensors."""
+    _check_group(xs, offsets)
+    if xs[0].device.type == "cpu":
+        return dropout_levels_plain(xs, seed, rate, batch_shared, offsets, relu)
+    if xs[0].device.type == "cuda":
+        return dropout_levels_cuda(xs, seed, rate, batch_shared, offsets, relu)
+    raise ValueError(f"dropout_levels has no path for device {xs[0].device}")
+
+
+def dropout_levels_backward(
+    gs: Sequence[torch.Tensor],
+    outs: Sequence[torch.Tensor],
+    seed: int,
+    rate: float,
+    batch_shared: bool,
+    offsets: Sequence[int],
+    relu: bool = False,
+) -> List[torch.Tensor]:
+    """The gradients of `dropout_levels` for the cotangents `gs`, given the
+    forward's outputs: the plain version for CPU tensors, one launch of the
+    grouped backward for CUDA tensors."""
+    _check_group(outs, offsets)
+    if outs[0].device.type == "cpu":
+        return dropout_levels_backward_plain(gs, outs, seed, rate, batch_shared, offsets, relu)
+    if outs[0].device.type == "cuda":
+        return dropout_levels_backward_cuda(gs, outs, seed, rate, batch_shared, offsets, relu)
+    raise ValueError(f"dropout_levels_backward has no path for device {outs[0].device}")
+
+
+_LIB.define("dropout_levels(Tensor[] xs, Tensor seed, float rate, bool batch_shared, "
+            "int[] offsets, bool relu) -> Tensor[]")
+
+
+def _dropout_levels_op_cpu(xs, seed, rate, batch_shared, offsets, relu):
+    return dropout_levels_plain(xs, int(seed), rate, batch_shared, offsets, relu)
+
+
+def _dropout_levels_op_cuda(xs, seed, rate, batch_shared, offsets, relu):
+    if seed.device.type != "cpu":
+        raise ValueError(f"dropout_levels_op reads its seed on the host; got one on {seed.device}")
+    return dropout_levels_cuda(xs, int(seed), rate, batch_shared, offsets, relu)
+
+
+_LIB.impl("dropout_levels", _dropout_levels_op_cpu, "CPU")
+_LIB.impl("dropout_levels", _dropout_levels_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("pod_compare_tpu_torch::dropout_levels")
+def _dropout_levels_op_fake(xs, seed, rate, batch_shared, offsets, relu):
+    return [torch.empty_like(x) for x in xs]
+
+
+def dropout_levels_op(
+    xs: Sequence[torch.Tensor],
+    seed: torch.Tensor,
+    rate: float,
+    batch_shared: bool,
+    offsets: Sequence[int],
+    relu: bool = False,
+) -> List[torch.Tensor]:
+    """`dropout_levels` through the operator, its seed an int64 0-d CPU
+    tensor: one node of an exported program."""
+    return torch.ops.pod_compare_tpu_torch.dropout_levels.default(
+        list(xs), seed, rate, batch_shared, [int(o) for o in offsets], relu)
+
+
+class _DropoutLevels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, seed, rate, batch_shared, offsets, relu, *xs):
+        outs = dropout_levels(xs, seed, rate, batch_shared, offsets, relu)
+        ctx.save_for_backward(*outs)
+        ctx.args = (seed, rate, batch_shared, offsets, relu)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        dxs = dropout_levels_backward(gs, ctx.saved_tensors, *ctx.args)
+        return (None,) * 5 + tuple(dxs)
+
+
+def dropout_levels_autograd(
+    xs: Sequence[torch.Tensor],
+    seed: int,
+    rate: float,
+    batch_shared: bool,
+    offsets: Sequence[int],
+    relu: bool = False,
+) -> List[torch.Tensor]:
+    """`dropout_levels` with a backward that replays every level's mask from
+    the seed in one launch."""
+    return list(_DropoutLevels.apply(seed, rate, batch_shared, list(offsets), relu, *xs))

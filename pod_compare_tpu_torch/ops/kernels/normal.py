@@ -12,10 +12,20 @@ words with counter ``(offset + i) // 4`` gives four words; each pair of
 words gives two normals by Box–Muller,
 
     u1, u2 = ((w >> 8) + 1) / 2^24 of each word     (in (0, 1])
-    r, t   = sqrt(-2 log u1), 2pi u2
-    normals r cos t, r sin t
+    r      = sqrt(-2 ln u1)
+    normals r cos(2pi u2), r sin(2pi u2)
 
-in float32, rounded once to the output's dtype. So a stream can be drawn
+in float32, rounded once to the output's dtype, by the arithmetic of
+``csrc/normal.cu``: ``-2 ln u1`` from u1's exponent and a degree-7
+polynomial of its mantissa (``neg2_log``), the correctly rounded square
+root, and the cosine and sine from the angle in turns, reduced exactly to
+a quadrant and a fraction f in [-1/2, 1/2] with polynomials in f^2
+(``cos_sin_turn``). Every FMA of the kernel is an exact ``fma`` here (the
+product in float64, the sum rounded once to float32), so the plain
+version gives the kernel's bits on any device. Against float64
+Box–Muller of the same words every normal of magnitude 1e-3 or more lies
+within 3.3 ulps, and the smaller ones within 1.5e-10 (``MAX_ULPS``,
+``tests/test_torch_normal.py``). So a stream can be drawn
 from any offset, and a draw at offset k equals the matching slice of a
 longer draw. A caller that draws several banks from one seed gives each a
 region of the stream (``stream_span`` rounds a region up to whole Philox
@@ -49,8 +59,23 @@ from pod_compare_tpu_torch.ops.kernels.dropout import philox4x32_10
 LAUNCHES = 0
 
 _MASK32 = 0xFFFFFFFF
-_TWO_PI = 6.283185307179586  # rounded to float32 where it multiplies a float32 tensor
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's float32 constants (csrc/normal.cu), each a float32 value
+# written exactly: q(t) of -2 ln(1 + t) = t (-2 + t q(t)) from its constant
+# term up; -2 ln 2 over 2^23; sin(pi f / 2) = f SIN_HI + f (SIN_LO + s P(s))
+# and cos(pi f / 2) = 1 + s Q(s) for s = f^2.
+_LOG_Q = (0.9999997019767761, -0.6666659116744995, 0.5000836253166199, -0.4001132845878601,
+          0.3296448588371277, -0.28168338537216187, 0.3009038269519806, -0.27204057574272156)
+_NEG2_LN2_OVER_2P23 = -1.6525916635146132e-07
+_SIN_HI, _SIN_LO = 1.5707963705062866, -4.371138828673793e-08
+_SIN_P = (-0.6459640264511108, 0.07968701422214508, -0.004621904343366623)
+_COS_Q = (-1.2337005138397217, 0.253669410943985, -0.020861517637968063, 0.0009067110368050635)
+_ROUND_MAGIC = 12582912.0  # 1.5 * 2^23: adding it rounds to an integer
+# Against float64 Box-Muller of the same words, for normals of magnitude
+# MAX_ULPS_ABOVE or more (a sample of 12.5 million normals holding the 1500
+# worst u1 of all 2^24 against the 1500 worst u2: 3.3); the smaller ones
+# within MAX_ABS_BELOW (1.5e-10).
+MAX_ULPS, MAX_ULPS_ABOVE, MAX_ABS_BELOW = 4.0, 1e-3, 2e-10
 
 
 def stream_span(n: int) -> int:
@@ -66,12 +91,68 @@ def u01(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 8) + 1).to(torch.float32) * (1.0 / 16777216.0)
 
 
+def _f64(v):
+    return v.double() if isinstance(v, torch.Tensor) else float(v)
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as the card's FMA: the product is
+    exact in float64, and the float64 sum, rounded again to float32, can
+    differ from one rounding only where it lands on a float32 midpoint;
+    there the sum's exact error (TwoSum) decides. a, b, c: float32 tensors
+    or floats holding float32 values; at least one a tensor."""
+    p = _f64(a) * _f64(b)
+    c = _f64(c)
+    s = p + c
+    back = s - p
+    err = (p - (s - back)) + (c - back)
+    r = s.to(torch.float32)
+    d = s - r.double()
+    inf = torch.full_like(r, math.inf)
+    toward = torch.nextafter(r, torch.where(d > 0, inf, -inf))
+    beyond = (d != 0) & (2 * d == toward.double() - r.double()) & (err != 0) & ((err > 0) == (d > 0))
+    return torch.where(beyond, toward, r)
+
+
+def neg2_log(u: torch.Tensor) -> torch.Tensor:
+    """-2 ln u of float32 u in (0, 1], as the kernel computes it: u = 2^e m
+    with m in [2/3, 4/3), t = m - 1 (exact), t (-2 + t q(t)) + e (-2 ln 2)."""
+    bits = u.view(torch.int32).to(torch.int64)
+    e_bits = (bits - 0x3F2AAAAB) & ~0x7FFFFF
+    t = (bits - e_bits).to(torch.int32).view(torch.float32) - 1.0
+    q = torch.full_like(t, _LOG_Q[7])
+    for k in range(6, -1, -1):
+        q = fma(q, t, _LOG_Q[k])
+    return fma(e_bits.to(torch.float32), _NEG2_LN2_OVER_2P23, t * fma(t, q, -2.0))
+
+
+def cos_sin_turn(u: torch.Tensor):
+    """(cos 2pi u, sin 2pi u) of float32 u = m / 2^24, as the kernel
+    computes them: 4u = k + f exactly, the polynomials at f, and the
+    quadrant k mod 4 swapping the two and setting their signs."""
+    j = fma(u, 4.0, _ROUND_MAGIC)
+    f = fma(u, 4.0, -(j - _ROUND_MAGIC))
+    quadrant = j.view(torch.int32)
+    s = f * f
+    p = fma(fma(_SIN_P[2], s, _SIN_P[1]), s, _SIN_P[0])
+    sn = fma(f, _SIN_HI, f * fma(s, p, _SIN_LO))
+    q = fma(fma(fma(_COS_Q[3], s, _COS_Q[2]), s, _COS_Q[1]), s, _COS_Q[0])
+    cs = fma(s, q, 1.0)
+    odd = (quadrant & 1) == 1
+    a, b = torch.where(odd, cs, sn), torch.where(odd, sn, cs)
+    return (torch.where(((quadrant + 1) & 2) != 0, -b, b),
+            torch.where((quadrant & 2) != 0, -a, a))
+
+
 def box_muller(a: torch.Tensor, b: torch.Tensor):
-    """(r cos t, r sin t) of two word tensors: r = sqrt(-2 log u01(a)),
-    t = 2pi u01(b), in float32."""
-    r = torch.sqrt(-2.0 * torch.log(u01(a)))
-    t = u01(b) * _TWO_PI
-    return r * torch.cos(t), r * torch.sin(t)
+    """(r cos t, r sin t) of two word tensors: r = sqrt(-2 ln u01(a)),
+    t = 2pi u01(b), in float32, bit for bit as the kernel's."""
+    # The correctly rounded square root, as __fsqrt_rn: through float64,
+    # whose one rounding back to float32 is exact for a square root; torch's
+    # float32 sqrt on the CPU is not always the nearest float.
+    r = torch.sqrt(neg2_log(u01(a)).double()).to(torch.float32)
+    c, s = cos_sin_turn(u01(b))
+    return r * c, r * s
 
 
 def _block_normals(q: torch.Tensor, seed: int) -> torch.Tensor:

@@ -7,6 +7,11 @@ the JAX side is the dispatcher's statistical contract
 (tests/test_pallas_dropout.py) and the premultiplied masks of
 `tower_dropout_masks(..., dtype=f32)` + `apply_mask`, which the MC bank
 uses. Statistical bands are 6 standard deviations of a binomial share.
+
+The grouped form (``dropout_levels``: one launch per (run, tower, layer)
+over the FPN levels on a card) is held bit for bit against ``dropout`` of
+each level at its offset, through its plain version, its operator and its
+autograd form.
 """
 
 import math
@@ -181,7 +186,7 @@ def test_kernel_dropout_draws_one_mask_per_tower_layer_over_all_levels():
     offsets = level_offsets(feats, batch_shared=True)
     assert offsets == [0, 16 * 16]
     td = KernelDropout([[11, 12], [13, 14]], RATE, offsets, batch_shared=True)
-    lvl0, lvl1 = td(feats[0], 1, 0, 0), td(feats[1], 1, 0, 1)
+    lvl0, lvl1 = td(feats, 1, 0)
     whole = kd.dropout(torch.ones(1, 16 * 16 + 16 * 4), seed=13, rate=RATE)
     joined = torch.cat([lvl0[0].permute(1, 2, 0).reshape(-1), lvl1[0].permute(1, 2, 0).reshape(-1)])
     assert torch.equal(joined, whole[0])
@@ -243,10 +248,98 @@ def test_kernel_dropout_is_differentiable_only_under_autograd():
     feats = torch.randn(2, 16, 4, 4).contiguous(memory_format=torch.channels_last)
     td = KernelDropout([[1, 2], [3, 4]], RATE, [0], batch_shared=False)
     with torch.no_grad():
-        plain = td(feats, 0, 1, 0)
+        (plain,) = td([feats], 0, 1)
     leaf = feats.clone().requires_grad_(True)
-    recorded = td(leaf, 0, 1, 0)
+    (recorded,) = td([leaf], 0, 1)
     assert recorded.grad_fn is not None and plain.grad_fn is None
     assert torch.equal(recorded.detach(), plain)
     recorded.sum().backward()
     assert torch.equal(leaf.grad != 0, plain > 0)
+
+
+def _levels(dtype, batch=2, channels=16, sizes=((8, 12), (4, 6), (2, 3), (1, 2), (1, 1))):
+    """Five channels_last levels and their offsets in one draw over them."""
+    gen = torch.Generator().manual_seed(21)
+    xs = [torch.randn(batch, channels, h, w, generator=gen).to(dtype)
+          .contiguous(memory_format=torch.channels_last) for h, w in sizes]
+    return xs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+def test_levels_equal_per_level_dropout_at_the_offsets(dtype, shared, relu):
+    """`dropout_levels_plain` and the operator `dropout_levels` give each
+    level what `dropout_plain` gives it at its offset, bit for bit, with no
+    launch on the CPU."""
+    xs = _levels(dtype)
+    offsets = level_offsets(xs, shared)
+    want = [kd.dropout_plain(x, 77, RATE, shared, o, relu) for x, o in zip(xs, offsets)]
+    before = kd.LAUNCHES
+    plain = kd.dropout_levels_plain(xs, 77, RATE, shared, offsets, relu)
+    op = kd.dropout_levels_op(xs, torch.tensor(77), RATE, shared, offsets, relu)
+    dispatched = kd.dropout_levels(xs, 77, RATE, shared, offsets, relu)
+    assert kd.LAUNCHES == before
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for got in (plain, op, dispatched):
+        assert len(got) == len(xs)
+        for g, w in zip(got, want):
+            assert g.is_contiguous(memory_format=torch.channels_last)
+            assert torch.equal(g.view(bits), w.view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [False, True])
+def test_grouped_autograd_backward_equals_the_per_level_backward(dtype, shared):
+    """One backward over the levels (NCHW cotangents, as a conv's backward
+    may hand them) equals `dropout_autograd`'s per level, bit for bit."""
+    xs = _levels(dtype)
+    offsets = level_offsets(xs, shared)
+    gen = torch.Generator().manual_seed(5)
+    gs = [torch.randn(x.shape, generator=gen).to(dtype) for x in xs]
+    grouped = [x.clone().requires_grad_(True) for x in xs]
+    ys = kd.dropout_levels_autograd(grouped, 9, RATE, shared, offsets, relu=True)
+    torch.autograd.backward(ys, gs)
+    for x, leaf, y, g, o in zip(xs, grouped, ys, gs, offsets):
+        single = x.clone().requires_grad_(True)
+        y1 = kd.dropout_autograd(single, 9, RATE, shared, o, relu=True)
+        y1.backward(g)
+        assert torch.equal(y.detach(), y1.detach())
+        assert torch.equal(leaf.grad, single.grad)
+        assert leaf.grad.is_contiguous(memory_format=torch.channels_last)
+    dxs = kd.dropout_levels_backward(gs, [y.detach() for y in ys], 9, RATE, shared, offsets,
+                                     True)
+    assert all(torch.equal(d, leaf.grad) for d, leaf in zip(dxs, grouped))
+
+
+def test_levels_operator_fake_kernel_and_opcheck():
+    xs = _levels(torch.bfloat16)
+    offsets = level_offsets(xs, True)
+    torch.library.opcheck(torch.ops.pod_compare_tpu_torch.dropout_levels.default,
+                          (xs, torch.tensor(3), RATE, True, offsets, True))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        fakes = [mode.from_tensor(x) for x in xs]
+        outs = kd.dropout_levels_op(fakes, torch.tensor(3), RATE, True, offsets, True)
+        assert [o.shape for o in outs] == [x.shape for x in xs]
+        assert all(o.is_contiguous(memory_format=torch.channels_last) for o in outs)
+
+
+def test_levels_refuse_what_one_launch_cannot_take():
+    xs = _levels(torch.float32)
+    offsets = level_offsets(xs, True)
+    with pytest.raises(ValueError, match="1 to 8"):
+        kd.dropout_levels(xs * 2, 1, RATE, True, offsets * 2)
+    with pytest.raises(ValueError, match="offset each"):
+        kd.dropout_levels(xs, 1, RATE, True, offsets[:-1])
+    with pytest.raises(ValueError, match="one dtype"):
+        kd.dropout_levels([xs[0], xs[1].to(torch.bfloat16)], 1, RATE, True, offsets[:2])
+    with pytest.raises(ValueError, match="divisible"):
+        kd.dropout_levels(xs[:2], 1, RATE, True, [0, 2])
+    with pytest.raises(ValueError, match="CUDA"):
+        kd.dropout_levels_cuda(xs, 1, RATE, True, offsets)
+    with pytest.raises(ValueError, match="CUDA"):
+        kd.dropout_levels_backward_cuda(xs, xs, 1, RATE, True, offsets)
+    with pytest.raises(ValueError, match="no path"):
+        kd.dropout_levels([x.to("meta") for x in xs], 1, RATE, True, offsets)

@@ -56,7 +56,19 @@ def test_bayes_od_mc_dropout_round_trip_exact(bayes):
     assert not torch.equal(outs[7].boxes, outs[8].boxes)
     assert outs[7].cluster_size is not None
     ops = {str(n.target) for n in served.program.graph.nodes}
-    assert "pod_compare_tpu_torch.dropout.default" in ops
+    assert "pod_compare_tpu_torch.dropout_levels.default" in ops
+
+
+def test_mc_program_holds_one_dropout_node_per_run_tower_and_layer(bayes):
+    """The head's dropout over the five levels is one node of the program
+    per (run, tower, layer): 2 towers x 4 layers x M runs, and no node of
+    the one-tensor operator."""
+    _, served, _ = bayes
+    m = served.manifest
+    targets = [str(n.target) for n in served.program.graph.nodes]
+    assert targets.count("pod_compare_tpu_torch.dropout_levels.default") == (
+        2 * m["num_convs"] * m["mc_runs"]) == 16
+    assert "pod_compare_tpu_torch.dropout.default" not in targets
 
 
 def test_manifest_contents(bayes):

@@ -21,8 +21,9 @@ from pod_compare_tpu.models import build_model as jax_build_model
 from pod_compare_tpu.models import init_model_params
 from pod_compare_tpu.train.torch_convert import convert_torch_state_dict, merge_into_params
 from pod_compare_tpu_torch.config import get_cfg
-from pod_compare_tpu_torch.models import InjectedMasks, build_model
+from pod_compare_tpu_torch.models import InjectedMasks, KernelDropout, build_model, level_offsets
 from pod_compare_tpu_torch.models.convert import from_jax_params
+from pod_compare_tpu_torch.ops.kernels import dropout as kd
 from test_full_model_parity import make_reference_state
 
 IMAGE_SIZE = (64, 64)
@@ -135,3 +136,42 @@ def test_forward_with_injected_masks_matches_jax(setup, monkeypatch):
         plain = tmodel(torch.from_numpy(images))
     _assert_outputs_close(ours, theirs)
     assert not np.allclose(ours["box_cls"].numpy(), plain["box_cls"].numpy())
+
+
+def _rest_level_by_level(head, prefix, seeds, offsets, shared):
+    """The head's `rest` in the order it ran before its towers went layer
+    by layer: each level through both towers, then its output convs, with
+    the plain dropout of each (tower, layer) at the level's offset."""
+    outs = {key: [] for key in KEYS}
+    for level in range(len(prefix[0])):
+        feats = []
+        for t in range(2):
+            x = prefix[t][level]
+            for layer in range(head.num_convs):
+                if layer:
+                    x = head.tower_conv(t, layer, x)
+                x = kd.dropout_plain(x, seeds[t][layer], RATE, shared, offsets[level], relu=True)
+            feats.append(x)
+        c, b = feats
+        outs["box_cls"].append(head._flatten(head.cls_score(c), head.num_classes))
+        outs["box_delta"].append(head._flatten(head.bbox_pred(b), 4))
+        outs["box_cls_var"].append(head._flatten(head.cls_var(c), head.num_classes))
+        outs["box_reg_var"].append(head._flatten(head.bbox_cov(b), head.bbox_cov_dims))
+    return {k: torch.cat(v, dim=1).float() for k, v in outs.items()}
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_rest_layer_by_layer_equals_the_per_level_order(setup, shared):
+    """`rest` runs each tower layer at every level and then one dropout call
+    over the levels (one launch of the grouped kernel on a card); on the CPU
+    through KernelDropout it equals the level-by-level order bit for bit."""
+    tmodel, images = setup[3], setup[4]
+    seeds = [[101, 102, 103, 104], [201, 202, 203, 204]]
+    with torch.no_grad():
+        feats = tmodel.backbone_features(torch.from_numpy(images))
+        prefix = tmodel.head.prefix(feats)
+        offsets = level_offsets(feats, shared)
+        ours = tmodel.head.rest(prefix, KernelDropout(seeds, RATE, offsets, shared))
+        theirs = _rest_level_by_level(tmodel.head, prefix, seeds, offsets, shared)
+    for key in KEYS:
+        assert torch.equal(ours[key], theirs[key]), key

@@ -7,6 +7,15 @@ version here, the CUDA kernel of ``csrc/normal.cu`` on a card, in
   block of four words per four stream indices; each pair of words gives two
   normals by Box-Muller, which the test recomputes in float64 from the words
   (float32 within 1e-5 of it).
+* The kernel's arithmetic (``csrc/normal.cu``: -2 ln u1 from u1's exponent
+  and a polynomial, the cosine and sine from the angle in turns), which the
+  plain version follows FMA for FMA (``normal.fma``: one rounding, checked
+  against exact rationals), within ``MAX_ULPS`` (4) of float64 Box-Muller
+  for normals of magnitude 1e-3 or more and within ``MAX_ABS_BELOW`` below,
+  over a seeded bank of a million normals; its parts over every 7th of the
+  2^24 uniforms: the radius within 2.1 and the cosine and sine within 1.5
+  units of 2^-24 relative (the float32 rounding of the result alone is up
+  to 1), the quarter turns exact.
 * A draw at offset k is the matching slice of a longer draw, whatever k.
 * Seeds give their own streams.
 * The law on 10^6 draws, float32 and bfloat16: the mean within 5 standard
@@ -21,6 +30,7 @@ version here, the CUDA kernel of ``csrc/normal.cu`` on a card, in
 """
 
 import math
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -167,3 +177,72 @@ def test_refusals():
     for shape, offset in (((3, 2, 2), 0), ((3, 5, 4), 0), ((3, 2, 4), 2)):
         with pytest.raises(ValueError, match="by rows"):
             kn.normal_plain(shape, 1, offset, index=index, rows=4)
+
+
+def _ulps(a: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """|a - want| in float32 ulps of the larger magnitude."""
+    m = np.maximum(np.abs(a.astype(np.float64)), np.abs(want))
+    return np.abs(a.astype(np.float64) - want) / np.ldexp(1.0, np.frexp(m)[1] - 24)
+
+
+def test_plain_normals_within_the_stated_ulps_of_float64_box_muller():
+    blocks = 2 ** 18  # a million normals
+    q = 77 + torch.arange(blocks, dtype=torch.int64)
+    words = torch.stack(kd.philox4x32_10(q & 0xFFFFFFFF, q >> 32, SEED), dim=1).numpy()
+    z = kn.normal_plain((4 * blocks,), SEED, 4 * 77).numpy()
+    want = _box_muller64(words)
+    big = np.abs(want) >= kn.MAX_ULPS_ABOVE
+    worst = float(_ulps(z[big], want[big]).max())
+    small = float(np.abs(z[~big] - want[~big]).max())
+    print(f"{big.sum()} normals of magnitude >= 1e-3 within {worst:.3f} ulps, "
+          f"{(~big).sum()} below within {small:.3e}")
+    assert worst <= kn.MAX_ULPS and small <= kn.MAX_ABS_BELOW
+
+
+def test_parts_on_a_stride_of_every_uniform():
+    m = torch.arange(1, 2 ** 24 + 1, 7, dtype=torch.int64)
+    m = torch.unique(torch.cat([m, torch.tensor([2 ** 22, 2 ** 23, 3 * 2 ** 22, 2 ** 24])]))
+    u = m.to(torch.float32) * 2.0 ** -24
+    r = torch.sqrt(kn.neg2_log(u)).double()
+    r_want = torch.sqrt(-2 * torch.log(m.double() / 2 ** 24))
+    inside = m < 2 ** 24
+    assert float(((r - r_want).abs() / r_want)[inside].max()) <= 2.1 * 2.0 ** -24
+    assert float(r[~inside].max()) == 0.0  # u = 1
+    cos, sin = kn.cos_sin_turn(u)
+    turns = 4 * m.double() / 2 ** 24
+    k = torch.round(turns)
+    t = math.pi / 2 * (turns - k)  # the exact quadrant, then float64 at the reduced angle
+    quadrant = k.long() % 4
+    c0, s0 = torch.cos(t), torch.sin(t)
+    want = {"cos": torch.stack([c0, -s0, -c0, s0])[quadrant, torch.arange(len(m))],
+            "sin": torch.stack([s0, c0, -s0, -c0])[quadrant, torch.arange(len(m))]}
+    for name, got in (("cos", cos), ("sin", sin)):
+        w = want[name]
+        nonzero = w != 0
+        rel = ((got.double() - w).abs() / w.abs())[nonzero]
+        assert float(rel.max()) <= 1.5 * 2.0 ** -24, name
+        assert bool((got[~nonzero] == 0).all()), name
+    assert int((cos == 0).sum()) == 2 and int((sin == 0).sum()) == 2  # the quarter turns
+
+
+def test_fma_rounds_once():
+    """`normal.fma` is the correctly rounded a * b + c of float32 values:
+    against exact rationals on seeded triples, and where a float64 sum lands
+    on a float32 midpoint that the exact sum passes or falls short of."""
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(400, generator=gen)
+    b = torch.randn(400, generator=gen) * torch.logspace(-8, 0, 400)
+    c = torch.randn(400, generator=gen) * torch.logspace(-12, 0, 400)
+    got = kn.fma(a, b, c)
+    for i in range(len(a)):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        near = [float(v) for v in (torch.nextafter(got[i], torch.tensor(-math.inf)), got[i],
+                                   torch.nextafter(got[i], torch.tensor(math.inf)))]
+        errs = [abs(Fraction(v) - exact) for v in near]
+        assert errs[1] == min(errs), i
+    one = torch.tensor([1.0 + 2 ** -23])
+    # 1 + 2^-23 + 2^-24 is a midpoint: ties to even, 1 + 2^-22
+    assert float(kn.fma(one, 1.0, 2.0 ** -24)) == 1.0 + 2 ** -22
+    # a midpoint in float64 that the exact sum passes: 1 + 2^-24 + 2^-60 rounds up
+    assert float(kn.fma(torch.tensor([1.0]), 1.0 + 2 ** -23, 2.0 ** -24 + 2.0 ** -60
+                        - 2.0 ** -23)) == 1.0 + 2 ** -23

@@ -244,22 +244,24 @@ def test_int8_predictor_matches_jax(setup):
 
 def test_int8_mc_bank_runs_float32_dropout_through_the_entry_point(setup, monkeypatch):
     """The user entry point on the CPU: the MC bank's K1 calls (its plain
-    version here) all see float32 tower activations, one per (run, tower,
-    layer, level), and the detections are finite."""
-    seen = []
-    real = tretinanet.dropout
+    version here), one per (run, tower, layer) over the five levels, all see
+    float32 tower activations, and the detections are finite."""
+    seen, calls = [], []
+    real = tretinanet.dropout_levels
 
-    def watched(x, *args, **kwargs):
-        seen.append(x.dtype)
-        return real(x, *args, **kwargs)
+    def watched(xs, *args, **kwargs):
+        calls.append(len(xs))
+        seen.extend(x.dtype for x in xs)
+        return real(xs, *args, **kwargs)
 
-    monkeypatch.setattr(tretinanet, "dropout", watched)
+    monkeypatch.setattr(tretinanet, "dropout_levels", watched)
     cfg = merge_configs(TRAIN_CFG, INFER_CFG, OVERRIDES[:-2] + INT8)
     assert cfg.PARALLEL.COMPUTE_DTYPE == "bfloat16"
     predictor = build_predictor(cfg, IMAGE_SIZE, _tensors(setup["sd"]), device="cpu")
     sizes = np.array([[64, 64]] * BATCH, np.float32)
     dets = predictor(setup["images"], sizes, sizes, generator=torch.Generator().manual_seed(1))
     assert seen == [torch.float32] * (NUM_RUNS * 2 * 4 * 5)
+    assert calls == [5] * (NUM_RUNS * 2 * 4)
     v = dets.valid
     assert v.any(dim=1).all()
     assert torch.isfinite(dets.boxes[v]).all() and torch.isfinite(dets.covs[v]).all()

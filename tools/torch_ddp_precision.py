@@ -70,8 +70,10 @@ DTYPES = (torch.float32, torch.float64)
 def plain_kernels():
     """Both kernels' plain versions on every device, in float64 too (their
     dtype checks are the kernels')."""
-    saved = kd.dropout, kd.dropout_backward, kd._DTYPE_CODES, kf.focal, kf._check
-    kd.dropout, kd.dropout_backward = kd.dropout_plain, kd.dropout_backward_plain
+    saved = (kd.dropout_levels, kd.dropout_levels_backward, kd._DTYPE_CODES, kf.focal,
+             kf._check)
+    kd.dropout_levels = kd.dropout_levels_plain
+    kd.dropout_levels_backward = kd.dropout_levels_backward_plain
     kd._DTYPE_CODES = {**kd._DTYPE_CODES, torch.float64: None}
     kf._check = lambda *args, **kwargs: None
     kf.focal = (lambda x, s, t, seed, n, alpha=0.25, gamma=2.0, index_base=0:
@@ -79,7 +81,8 @@ def plain_kernels():
     try:
         yield
     finally:
-        kd.dropout, kd.dropout_backward, kd._DTYPE_CODES, kf.focal, kf._check = saved
+        (kd.dropout_levels, kd.dropout_levels_backward, kd._DTYPE_CODES, kf.focal,
+         kf._check) = saved
 
 
 def setup(args, device):
