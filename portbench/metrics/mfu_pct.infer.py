@@ -1,0 +1,8 @@
+"""FLOPs of the convolutions the window's images need (counts/convs.py)
+over the window's wall time, against the card's bf16 peak."""
+
+from portbench.harness.readers import mfu_pct
+
+
+def read(run):
+    return mfu_pct(run, "infer")
