@@ -5,6 +5,8 @@ Counterpart of ``pod_compare_tpu/inference/modes.py``: ``standard_nms``,
 box merge) and the black-box merge of post-NMS detections from several
 runs or ensemble members. The pre-NMS MC-dropout and ensemble modes are
 ``standard_nms`` on the averaged head outputs (the predictor's dispatch).
+While a profiler records, BayesOD's fusion opens the span ``pod.fusion``
+and the greedy merge's clustering ``pod.merge``.
 """
 
 import torch
@@ -18,6 +20,7 @@ from pod_compare_tpu_torch.ops.fusion import (
     greedy_sequential_clusters,
 )
 from pod_compare_tpu_torch.ops.nms import batched_nms
+from pod_compare_tpu_torch.utils.profiling import span
 
 # Relative diagonal jitter added before precision-matrix inversion in
 # Bayesian fusion (float32 Cholesky needs a floor scaled to the covariance).
@@ -98,35 +101,36 @@ def bayes_od(
     Without a covariance source, members get identical 1e-4·I covariances."""
     keep, cluster_mask, fusion_mask = _nms_clusters(cands, nms_thresh, max_dets,
                                                     affinity_threshold)
-    if cands.has_cov:
-        covs = _condition(cands.covs)
-    else:
-        eye = torch.eye(4, dtype=cands.boxes.dtype, device=cands.boxes.device)
-        covs = (1e-4 * eye).expand(cands.covs.shape)
-    if box_merge_mode == "bayesian_inference":
-        fused_boxes, fused_covs = bayesian_fusion(fusion_mask, cands.boxes, covs)
-    elif box_merge_mode == "covariance_intersection":
-        fused_boxes, fused_covs = covariance_intersection_fusion(fusion_mask, cands.boxes, covs)
-    else:
-        raise ValueError(f"Invalid BAYES_OD.BOX_MERGE_MODE {box_merge_mode}")
+    with span("pod.fusion"):
+        if cands.has_cov:
+            covs = _condition(cands.covs)
+        else:
+            eye = torch.eye(4, dtype=cands.boxes.dtype, device=cands.boxes.device)
+            covs = (1e-4 * eye).expand(cands.covs.shape)
+        if box_merge_mode == "bayesian_inference":
+            fused_boxes, fused_covs = bayesian_fusion(fusion_mask, cands.boxes, covs)
+        elif box_merge_mode == "covariance_intersection":
+            fused_boxes, fused_covs = covariance_intersection_fusion(fusion_mask, cands.boxes, covs)
+        else:
+            raise ValueError(f"Invalid BAYES_OD.BOX_MERGE_MODE {box_merge_mode}")
 
-    if cls_merge_mode == "bayesian_inference":
-        m = cluster_mask.to(cands.prob_vectors.dtype)
-        counts = m.sum(dim=1).clamp_min(1.0)
-        probs = (m @ cands.prob_vectors) / counts[:, None]
-        scores = probs.amax(dim=1)
-        classes = probs.argmax(dim=1)
-    elif cls_merge_mode == "max_score":
-        probs = cands.prob_vectors[keep.indices]
-        scores = cands.scores[keep.indices]
-        classes = cands.classes[keep.indices]
-    else:
-        raise ValueError(f"Invalid BAYES_OD.CLS_MERGE_MODE {cls_merge_mode}")
+        if cls_merge_mode == "bayesian_inference":
+            m = cluster_mask.to(cands.prob_vectors.dtype)
+            counts = m.sum(dim=1).clamp_min(1.0)
+            probs = (m @ cands.prob_vectors) / counts[:, None]
+            scores = probs.amax(dim=1)
+            classes = probs.argmax(dim=1)
+        elif cls_merge_mode == "max_score":
+            probs = cands.prob_vectors[keep.indices]
+            scores = cands.scores[keep.indices]
+            classes = cands.classes[keep.indices]
+        else:
+            raise ValueError(f"Invalid BAYES_OD.CLS_MERGE_MODE {cls_merge_mode}")
 
-    return Detections(
-        boxes=fused_boxes, covs=fused_covs, scores=scores, classes=classes,
-        prob_vectors=probs, valid=keep.valid, cluster_size=fusion_mask.sum(dim=1),
-    )
+        return Detections(
+            boxes=fused_boxes, covs=fused_covs, scores=scores, classes=classes,
+            prob_vectors=probs, valid=keep.valid, cluster_size=fusion_mask.sum(dim=1),
+        )
 
 
 def black_box_merge(
@@ -146,9 +150,10 @@ def black_box_merge(
     vectors carry a trailing background column left out of the score.
     """
     iou = pairwise_iou(dets.boxes, dets.boxes)
-    centers, members = greedy_sequential_clusters(
-        iou, dets.classes, dets.valid, affinity_threshold
-    )
+    with span("pod.merge"):
+        centers, members = greedy_sequential_clusters(
+            iou, dets.classes, dets.valid, affinity_threshold
+        )
     n = dets.boxes.shape[0]
     boxes, probs, covs = cluster_statistics(
         members, dets.boxes, dets.prob_vectors, dets.covs,

@@ -18,7 +18,11 @@ INFERENCE_MODE of ``configs/Inference/``. One call runs
 PyTorch runs eagerly. The predictor runs on CUDA unless given another
 device, and raises when CUDA is absent and no device was given. Its
 forward after the host's seed draw is one module (``PipelineModule``),
-which ``inference/export.py`` exports whole.
+which ``inference/export.py`` exports whole. While a profiler records,
+each stage opens a ``pod.*`` span (``utils/profiling.span``): ``pod.seeds``,
+``pod.head_bank`` (``pod.backbone``, ``pod.head_runs``) and ``pod.detect``
+(per image ``pod.core``, ``pod.mode``, ``pod.rescale``; ``pod.stack``);
+an exported program holds none of them.
 """
 
 from typing import List, Optional, Sequence
@@ -42,6 +46,7 @@ from pod_compare_tpu_torch.models import (
     level_offsets,
 )
 from pod_compare_tpu_torch.utils.device import resolve_device
+from pod_compare_tpu_torch.utils.profiling import span
 
 MODES = ("standard_nms", "anchor_statistics", "bayes_od", "mc_dropout_ensembles", "ensembles")
 
@@ -146,30 +151,34 @@ class PipelineModule(nn.Module):
         if self.mode == "ensembles":
             # Each member's forward is queued on its own card before any
             # output is copied back, so members on several cards overlap.
-            runs = [model(images.to(d, non_blocking=True))
-                    for model, d in zip(self.models, self.member_devices)]
-            return [{k: None if v is None else v.to(self.device, non_blocking=True)
-                     for k, v in run.items()} for run in runs]
+            with span("pod.head_runs"):
+                runs = [model(images.to(d, non_blocking=True))
+                        for model, d in zip(self.models, self.member_devices)]
+                return [{k: None if v is None else v.to(self.device, non_blocking=True)
+                         for k, v in run.items()} for run in runs]
         model = self.models[0]
-        feats = model.backbone_features(images)
-        prefix = model.head.prefix(feats)
-        if not self.is_multi:
-            return [model.head.rest(prefix)]
-        if tower_dropouts is None:
-            offsets = level_offsets(feats, self.batch_shared_masks)
-            tower_dropouts = [
-                KernelDropout(s, model.dropout_rate, offsets, self.batch_shared_masks)
-                for s in dropout_seeds
-            ]
-        return [model.head.rest(prefix, td) for td in tower_dropouts]
+        with span("pod.backbone"):
+            feats = model.backbone_features(images)
+            prefix = model.head.prefix(feats)
+        with span("pod.head_runs"):
+            if not self.is_multi:
+                return [model.head.rest(prefix)]
+            if tower_dropouts is None:
+                offsets = level_offsets(feats, self.batch_shared_masks)
+                tower_dropouts = [
+                    KernelDropout(s, model.dropout_rate, offsets, self.batch_shared_masks)
+                    for s in dropout_seeds
+                ]
+            return [model.head.rest(prefix, td) for td in tower_dropouts]
 
     def _head_outputs(self, images, dropout_seeds, tower_dropouts=None):
-        runs = self._runs(images, dropout_seeds, tower_dropouts)
-        if not self.is_multi:
-            return runs[0], None
-        stacked = _stack(runs)
-        mean = {k: None if v is None else v.mean(dim=0) for k, v in stacked.items()}
-        return mean, stacked["box_delta"]
+        with span("pod.head_bank"):
+            runs = self._runs(images, dropout_seeds, tower_dropouts)
+            if not self.is_multi:
+                return runs[0], None
+            stacked = _stack(runs)
+            mean = {k: None if v is None else v.mean(dim=0) for k, v in stacked.items()}
+            return mean, stacked["box_delta"]
 
     @torch.no_grad()
     def run_outputs(
@@ -249,23 +258,28 @@ class PipelineModule(nn.Module):
         batch = outs["box_cls"].shape[0]
         seeds = self._sampling_seeds(sampling_seeds, batch)
         per_image = []
-        for b in range(batch):
-            pick = lambda t: None if t is None else t[b]
-            cands = probabilistic_inference_core(
-                self.anchors, outs["box_cls"][b], outs["box_delta"][b],
-                pick(outs["box_cls_var"]), pick(outs["box_reg_var"]),
-                None if run_deltas is None else run_deltas[:, b],
-                seed=None if seeds is None else seeds[b], defer_covariance=defer,
-                **self.core_kwargs,
-            )
-            dets = self._mode(cands)
-            if defer and outs["box_reg_var"] is not None:
-                dets = deferred_covariance(
-                    dets, outs["box_delta"][b], outs["box_reg_var"][b], self.anchors,
-                    self.core_kwargs["box_reg_weights"],
-                )
-            per_image.append(self._rescale(dets, b, input_sizes, output_sizes))
-        return _stack_images(per_image)
+        with span("pod.detect"):
+            for b in range(batch):
+                pick = lambda t: None if t is None else t[b]
+                with span("pod.core"):
+                    cands = probabilistic_inference_core(
+                        self.anchors, outs["box_cls"][b], outs["box_delta"][b],
+                        pick(outs["box_cls_var"]), pick(outs["box_reg_var"]),
+                        None if run_deltas is None else run_deltas[:, b],
+                        seed=None if seeds is None else seeds[b], defer_covariance=defer,
+                        **self.core_kwargs,
+                    )
+                with span("pod.mode"):
+                    dets = self._mode(cands)
+                with span("pod.rescale"):
+                    if defer and outs["box_reg_var"] is not None:
+                        dets = deferred_covariance(
+                            dets, outs["box_delta"][b], outs["box_reg_var"][b], self.anchors,
+                            self.core_kwargs["box_reg_weights"],
+                        )
+                    per_image.append(self._rescale(dets, b, input_sizes, output_sizes))
+            with span("pod.stack"):
+                return _stack_images(per_image)
 
     @torch.no_grad()
     def detect_post_nms(self, run_outs, input_sizes, output_sizes,
@@ -280,27 +294,34 @@ class PipelineModule(nn.Module):
         seeds = self._sampling_seeds(sampling_seeds, batch)
         defer = self.core_kwargs["box_sampling"] == "analytic"
         per_image = []
-        for b in range(batch):
-            units = []
-            for m in range(num_runs):
-                unit = {k: None if v is None else v[m, b] for k, v in run_outs.items()}
-                cands = probabilistic_inference_core(
-                    self.anchors, unit["box_cls"], unit["box_delta"], unit["box_cls_var"],
-                    unit["box_reg_var"], None, seed=None if seeds is None else seeds[b, m],
-                    defer_covariance=defer, **self.core_kwargs,
-                )
-                dets = M.standard_nms(cands, self.nms_thresh, self.max_dets)
-                if defer and unit["box_reg_var"] is not None:
-                    dets = deferred_covariance(
-                        dets, unit["box_delta"], unit["box_reg_var"], self.anchors,
-                        self.core_kwargs["box_reg_weights"],
+        with span("pod.detect"):
+            for b in range(batch):
+                units = []
+                with span("pod.mode"):
+                    for m in range(num_runs):
+                        unit = {k: None if v is None else v[m, b] for k, v in run_outs.items()}
+                        with span("pod.core"):
+                            cands = probabilistic_inference_core(
+                                self.anchors, unit["box_cls"], unit["box_delta"],
+                                unit["box_cls_var"], unit["box_reg_var"], None,
+                                seed=None if seeds is None else seeds[b, m],
+                                defer_covariance=defer, **self.core_kwargs,
+                            )
+                        dets = M.standard_nms(cands, self.nms_thresh, self.max_dets)
+                        if defer and unit["box_reg_var"] is not None:
+                            dets = deferred_covariance(
+                                dets, unit["box_delta"], unit["box_reg_var"], self.anchors,
+                                self.core_kwargs["box_reg_weights"],
+                            )
+                        units.append(dets)
+                    merged = M.black_box_merge(
+                        M.concatenate_detections(units), self.nms_thresh, self.max_dets,
+                        self.affinity,
                     )
-                units.append(dets)
-            merged = M.black_box_merge(
-                M.concatenate_detections(units), self.nms_thresh, self.max_dets, self.affinity,
-            )
-            per_image.append(self._rescale(merged, b, input_sizes, output_sizes))
-        return _stack_images(per_image)
+                with span("pod.rescale"):
+                    per_image.append(self._rescale(merged, b, input_sizes, output_sizes))
+            with span("pod.stack"):
+                return _stack_images(per_image)
 
     @torch.no_grad()
     def forward(self, images: torch.Tensor, input_sizes: torch.Tensor,
@@ -309,8 +330,9 @@ class PipelineModule(nn.Module):
         """Images on the device to batched Detections: the head outputs of
         every run, then `detect_post_nms` or `detect`."""
         if self.post_nms:
-            return self.detect_post_nms(_stack(self._runs(images, dropout_seeds)),
-                                        input_sizes, output_sizes, sampling_seeds)
+            with span("pod.head_bank"):
+                run_outs = _stack(self._runs(images, dropout_seeds))
+            return self.detect_post_nms(run_outs, input_sizes, output_sizes, sampling_seeds)
         outs, run_deltas = self._head_outputs(images, dropout_seeds)
         return self.detect(outs, run_deltas, input_sizes, output_sizes, sampling_seeds)
 
@@ -410,10 +432,11 @@ class ProbabilisticPredictor:
             coordinates.
         """
         images = torch.as_tensor(images)
-        dropout_seeds, sampling_seeds = draw_call_seeds(
-            generator, self.num_runs, self.num_convs, images.shape[0],
-            self.num_runs if self.post_nms else 0)
-        images = images.to(self.device, non_blocking=True)
+        with span("pod.seeds"):
+            dropout_seeds, sampling_seeds = draw_call_seeds(
+                generator, self.num_runs, self.num_convs, images.shape[0],
+                self.num_runs if self.post_nms else 0)
+            images = images.to(self.device, non_blocking=True)
         sizes = lambda s: torch.as_tensor(s, dtype=torch.float32, device=self.device)
         return self.pipeline(images, sizes(input_sizes), sizes(output_sizes), dropout_seeds,
                              sampling_seeds)

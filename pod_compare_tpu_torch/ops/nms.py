@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from pod_compare_tpu_torch.utils.profiling import span
+
 _NEG_INF = -1e10
 
 
@@ -72,7 +74,9 @@ def batched_nms(
     max_out: int,
 ) -> NMSResult:
     """Class-aware NMS through per-class coordinate offsets: boxes of
-    different classes never suppress each other."""
-    max_coord = torch.where(valid[:, None], boxes, 0.0).max() + 1.0
-    offsets = classes.to(boxes.dtype)[:, None] * max_coord
-    return nms(boxes + offsets, scores, valid, iou_threshold, max_out)
+    different classes never suppress each other. While a profiler records,
+    the call is the span ``pod.nms``."""
+    with span("pod.nms"):
+        max_coord = torch.where(valid[:, None], boxes, 0.0).max() + 1.0
+        offsets = classes.to(boxes.dtype)[:, None] * max_coord
+        return nms(boxes + offsets, scores, valid, iou_threshold, max_out)

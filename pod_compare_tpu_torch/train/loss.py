@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from pod_compare_tpu_torch.ops import losses as L
 from pod_compare_tpu_torch.ops.matcher import label_anchors_batch
 from pod_compare_tpu_torch.parallel.mesh import BatchShard, all_reduce_sum
+from pod_compare_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -118,9 +119,10 @@ def compute_losses(
             ``num_pos_anchors`` the global count per global image. Collective
             when the shard is part of a larger batch.
     """
-    labels = label_anchors_batch(
-        anchors, gt_boxes, gt_classes, gt_valid, lc.num_classes, lc.iou_thresholds
-    )
+    with span("pod.matcher"):
+        labels = label_anchors_batch(
+            anchors, gt_boxes, gt_classes, gt_valid, lc.num_classes, lc.iou_thresholds
+        )
     anchor_classes = labels.gt_classes  # (B, R)
     valid_mask = anchor_classes >= 0
     pos_mask = valid_mask & (anchor_classes != lc.num_classes)

@@ -5,6 +5,9 @@ DefaultTrainer/SimpleTrainer as the reference exercises it). One step runs
 the forward (per-sample dropout through the dropout kernel, the stochastic
 focal loss through the focal kernel when CLS_VAR_LOSS.IMPL is 'pallas'),
 the backward (the dropout kernel's seed-replay backward) and the SGD update.
+While a profiler records, a step is the span ``pod.step`` around
+``pod.forward``, ``pod.loss`` (with ``pod.matcher``), ``pod.backward`` and
+``pod.optimizer`` (``utils/profiling.span``).
 
 The state (step, model, optimizer, EMA loss normalizer, generator) is a
 ``TrainState``. The generator is a host-side ``torch.Generator``: the seeds
@@ -71,7 +74,7 @@ from pod_compare_tpu_torch.train.optim import build_optimizer, clip_gradients, m
 from pod_compare_tpu_torch.utils.device import resolve_device
 from pod_compare_tpu_torch.utils.events import EventStorage
 from pod_compare_tpu_torch.utils.logging import setup_logger
-from pod_compare_tpu_torch.utils.profiling import annotate, trace
+from pod_compare_tpu_torch.utils.profiling import span, trace
 
 TRAIN_BATCH_KEYS = ("images", "gt_boxes", "gt_classes", "gt_valid")
 _SEED_HIGH = 2 ** 63 - 1
@@ -214,27 +217,35 @@ class TrainStep:
         of one forward; `tower_dropout` replaces the kernel's masks."""
         shard = self._shard(batch)
         forward = self.ddp if self.ddp is not None else _TrainForward(state.model, self.remat)
-        outputs = forward(batch["images"], seeds, self.shared_masks, shard, tower_dropout)
-        losses, new_norm = compute_losses(
-            outputs, self.anchors, batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"],
-            state.loss_normalizer, state.step, self.lc, loss_seed, shard,
-        )
+        with span("pod.forward"):
+            outputs = forward(batch["images"], seeds, self.shared_masks, shard, tower_dropout)
+        with span("pod.loss"):
+            losses, new_norm = compute_losses(
+                outputs, self.anchors, batch["gt_boxes"], batch["gt_classes"],
+                batch["gt_valid"], state.loss_normalizer, state.step, self.lc, loss_seed, shard,
+            )
         return losses["loss_cls"] + losses["loss_box_reg"], losses, new_norm
 
     def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         """One step; returns its metrics, still on the device."""
+        with span("pod.step"):
+            return self._step(state, batch)
+
+    def _step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         seeds, loss_seed = self.draw_seeds(state.generator)
         state.optimizer.zero_grad(set_to_none=True)
         total, losses, new_norm = self.losses(state, batch, seeds, loss_seed)
-        # DistributedDataParallel averages the gradients over the processes.
-        (total * process_count() if self.ddp is not None else total).backward()
-        if self.clip is not None:
-            params = [p for group in state.optimizer.param_groups for p in group["params"]]
-            clip_gradients(params, *self.clip)
-        lr = self.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
+        with span("pod.backward"):
+            # DistributedDataParallel averages the gradients over the processes.
+            (total * process_count() if self.ddp is not None else total).backward()
+        with span("pod.optimizer"):
+            if self.clip is not None:
+                params = [p for group in state.optimizer.param_groups for p in group["params"]]
+                clip_gradients(params, *self.clip)
+            lr = self.schedule(state.step)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.optimizer.step()
         state.loss_normalizer = new_norm.detach()
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
@@ -400,10 +411,9 @@ class Trainer:
                     elif it == profile_iters[1] and profiling is not None:
                         profiling.__exit__(None, None, None)
                         profiling = None
-                with annotate("data"):
+                with span("pod.data"):
                     batch = batch_to_device(next(data), self.device)
-                with annotate("train_step"):
-                    metrics = self.train_step(self.state, batch)
+                metrics = self.train_step(self.state, batch)
                 self.storage.iter = it
                 last = it == max_iter - 1
                 if (it + 1) % log_period == 0 or last:

@@ -1,21 +1,22 @@
-"""Tracing and section timing.
+"""Tracing and named spans.
 
 The port's counterpart of ``pod_compare_tpu/utils/profiling.py``:
 ``trace`` captures a ``torch.profiler`` trace of the host and, on CUDA, the
 card around a training window or an inference loop, written under
 ``<output_dir>/profile`` in TensorBoard's format (a Chrome trace json);
-``annotate`` names a region in it; ``SectionTimer`` sums wall-clock time per
-named section.
+``span`` names a region of the port's work in whatever profiler is
+recording, on the clock of its device events, and costs one check of the
+profiler's state when none is.
 """
 
 import contextlib
 import os
-import time
-from collections import defaultdict
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -34,40 +35,10 @@ def trace(output_dir: Optional[str], enabled: bool = True):
         yield prof
 
 
-def annotate(name: str):
-    """Named region visible in profiler timelines."""
-    return record_function(name)
-
-
-class SectionTimer:
-    """Host-side cumulative wall-clock timer for pipeline sections."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def section(self, name: str, sync=None):
-        """Time the block. With `sync` (a tensor or a device) on CUDA, the
-        section ends when the stream it ran on, that device's current
-        stream, has finished its work."""
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                device = sync.device if isinstance(sync, torch.Tensor) else torch.device(sync)
-                if device.type == "cuda":
-                    torch.cuda.current_stream(device).synchronize()
-            self.totals[name] += time.perf_counter() - start
-            self.counts[name] += 1
-
-    def summary(self) -> Dict[str, float]:
-        """Mean seconds per call of each section."""
-        return {name: self.totals[name] / max(self.counts[name], 1) for name in self.totals}
-
-    def report(self) -> str:
-        return "\n".join(
-            f"{name}: {avg * 1000:.2f} ms/call ({self.counts[name]} calls)"
-            for name, avg in sorted(self.summary().items())
-        )
+def span(name: str):
+    """A ``record_function`` range named `name` while a profiler records
+    (it appears in the trace as a ``user_annotation`` event); otherwise a
+    shared no-op context, with no clock read and no allocation."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN

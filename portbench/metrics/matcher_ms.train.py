@@ -1,0 +1,9 @@
+"""Host milliseconds a step inside the port's ``pod.matcher`` spans: the
+anchor matcher (``ops/matcher.py::label_anchors_batch``), in the
+host-traced pass (``harness/program_spans.py``)."""
+
+from portbench.harness.program_spans import span_ms
+
+
+def read(run):
+    return span_ms(run, "train", "pod.matcher")

@@ -46,7 +46,6 @@ from pod_compare_tpu_torch.train import RandomBatches, Trainer, resolve_weights_
 from pod_compare_tpu_torch.train import trainer as trainer_module
 from pod_compare_tpu_torch.train.checkpoint import Checkpointer, load_params
 from pod_compare_tpu_torch.utils.logging import setup_logger
-from pod_compare_tpu_torch.utils.profiling import SectionTimer
 from test_full_model_parity import make_reference_state
 from test_torch_apply_net import _assert_metrics_close, _results
 from test_torch_pipeline import _temper
@@ -324,7 +323,7 @@ def test_convert_torch_checkpoint_writes_what_run_inference_and_resume_load(
     shutil.rmtree(tmp_path / "data", ignore_errors=True)
 
 
-def test_profile_iters_write_a_trace_and_sections_are_timed(tmp_path):
+def test_profile_iters_write_a_trace_with_the_ports_spans(tmp_path):
     cfg = merge_configs(TRAIN_CFG, "", list(OPTS) + [
         "OUTPUT_DIR", str(tmp_path / "out"), "SOLVER.CHECKPOINT_PERIOD", 100])
     trainer = Trainer(cfg, RandomBatches(CANVAS, 2, NUM_CLASSES), device="cpu")
@@ -335,13 +334,4 @@ def test_profile_iters_write_a_trace_and_sections_are_timed(tmp_path):
     assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
     with open(tmp_path / "out" / "profile" / traces[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"data", "train_step"} <= names
-
-    timer = SectionTimer()
-    for _ in range(3):
-        with timer.section("a", sync=torch.zeros(1)):
-            pass
-    with timer.section("b", sync="cpu"):
-        pass
-    assert timer.counts == {"a": 3, "b": 1}
-    assert set(timer.summary()) == {"a", "b"} and "a: " in timer.report()
+    assert {"pod.data", "pod.step", "pod.forward", "pod.backward"} <= names
