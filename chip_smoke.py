@@ -4,7 +4,7 @@
     python chip_smoke.py [--seed N] [--profile] [--parent DIR]
 
 Phases, each printing its seconds on its own line as it ends:
-  1. device: the card's name and power limit (nvidia-smi); build the three
+  1. device: the card's name and power limit (nvidia-smi); build the four
      CUDA kernels of csrc/ with nvcc into build/, one nvcc each, started
      together, and print what ptxas reports of them.
   2. kernel: the dropout kernel against its plain PyTorch version at the
@@ -27,7 +27,13 @@ Phases, each printing its seconds on its own line as it ends:
      torch.randn's and the bound. With --parent DIR, the dropout kernel of
      the checkout in DIR too (the P3 launches and the group's five, one a
      level, bit-identical and timed in turns with this one) and its normal
-     kernel at the class bank, timed in turns.
+     kernel at the class bank, timed in turns. Last, the class-aware NMS
+     kernel (csrc/nms.cu; ptxas: no spills) at the pre-NMS paths' 4,540
+     candidates, max_out 100, over three seeds, and at the merge's 1,000:
+     bit-identical to its plain loop on the card and on the CPU; its time
+     (CUDA-graph replay over 400 input sets, L2-cold) beside its latency
+     floor (the same 100 steps' reductions and barrier, no candidates), the
+     plain loop's replayed device time and host-driven wall time.
   3. slice: the flagship BayesOD + MC-dropout(10) predictor at full R50-FPN
      width on the 736x1280 BDD canvas, batch 2, random weights from the
      seed: the launch count of one call, finite outputs, PSD covariances,
@@ -110,7 +116,8 @@ Phases, each printing its seconds on its own line as it ends:
      memory, head vs core/mode/merge ms, the card's busy share of a traced
      call, and the greedy merge's clusters and ms; the normal kernel's
      launches of one call (22 on the mc_iid flagship: per image the class
-     bank and 10 box chunks; else 0). The mc_iid banks held by law on image
+     bank and 10 box chunks; else 0) and the NMS kernel's (at least one an
+     image). The mc_iid banks held by law on image
      0 (standardised errors of the class bank against the exact sigmoid
      moments, of the sampled box decode against the closed-form moments).
      Every mode, the mc_iid flagship too (its normals drawn from the call's
@@ -255,7 +262,9 @@ from pod_compare_tpu_torch.ops.gaussian import covariance_output_to_cholesky
 from pod_compare_tpu_torch.ops.kernels import _build
 from pod_compare_tpu_torch.ops.kernels import dropout as kdropout
 from pod_compare_tpu_torch.ops.kernels import focal as kfocal
+from pod_compare_tpu_torch.ops.kernels import nms as knms
 from pod_compare_tpu_torch.ops.kernels import normal as knormal
+from pod_compare_tpu_torch.ops import nms as pnms
 from pod_compare_tpu_torch.ops.matcher import label_anchors_batch
 from pod_compare_tpu_torch.ops import quant as pquant
 from pod_compare_tpu_torch.ops.preprocess import resize_and_pad
@@ -883,6 +892,89 @@ def check_normal_kernel(seed: int, card: str, parent=None) -> dict:
     main = records["class bank"]
     main["box_chunk"] = records["box chunk"]
     main["build"] = build
+    return main
+
+
+def nms_inputs(seed: int, n: int, device="cuda"):
+    """(boxes, scores, classes, valid) of n pre-NMS candidates on the
+    736x1280 canvas: boxes jittered around n / 15 objects (sides 16-400 px),
+    uniform scores, valid above 0.05, NUM_CLASSES classes."""
+    rs = np.random.RandomState(seed)
+    objects = max(n // 15, 1)
+    side = np.exp(rs.uniform(np.log(16.0), np.log(400.0), (objects, 2)))
+    centre = rs.rand(objects, 2) * (CANVAS[1], CANVAS[0])
+    which = rs.randint(0, objects, n)
+    s = side[which] * np.exp(rs.normal(0.0, 0.15, (n, 2)))
+    c = centre[which] + rs.normal(0.0, 0.1, (n, 2)) * side[which]
+    boxes = np.concatenate([c - s / 2, c + s / 2], axis=1).astype(np.float32)
+    scores = rs.rand(n).astype(np.float32)
+    classes = rs.randint(0, NUM_CLASSES, n).astype(np.int64)
+    return [torch.from_numpy(a).to(device) for a in (boxes, scores, classes, scores > 0.05)]
+
+
+def check_nms_kernel(seed: int, card: str) -> dict:
+    """Phase 2, part 4: ptxas's report of csrc/nms.cu (no spills); the NMS
+    kernel against the plain loop at the pre-NMS paths' shape (4,540
+    candidates, 7 classes, max_out 100, threshold 0.5) over three seeds and
+    at the merge's 1,000, bit for bit on the card and on the CPU; then its
+    time alone by CUDA-graph replay over 400 input sets (52 MB, past the
+    50 MB L2: L2-cold), its latency floor (pod_nms_chain: the same 100
+    steps' reductions and barrier with no candidates), the plain loop's
+    device time (replayed) and host-driven wall time, and the kernel's wall
+    time through ops/nms.py::batched_nms (launch and synchronise)."""
+    reports = {}
+    for name, info in sorted(ptxas_instances(_build.ptxas_report("nms.cu"), "").items()):
+        log(f"ptxas nms.cu {name}: {info.get('registers')} registers, "
+            f"{info.get('stack_bytes')} bytes stack, {info.get('spill_stores')} bytes spill "
+            f"stores, {info.get('spill_loads')} bytes spill loads ({card})")
+        if len(info) != 4 or info["spill_stores"] or info["spill_loads"]:
+            raise AssertionError(f"nms.cu {name}: spills, or no report: {info}")
+        reports[name] = info
+    records = {}
+    for n, seeds in ((4540, (seed, seed + 1, seed + 2)), (1000, (seed,))):
+        for s in seeds:
+            args = nms_inputs(s, n)
+            idx, ok = knms.batched_nms_op(*args, 0.5, 100)
+            plain = knms.batched_nms_plain(*args, 0.5, 100)
+            cpu = knms.batched_nms_plain(*[a.cpu() for a in args], 0.5, 100)
+            torch.cuda.synchronize()
+            if not (torch.equal(idx, plain[0]) and torch.equal(ok, plain[1])
+                    and torch.equal(idx.cpu(), cpu[0]) and torch.equal(ok.cpu(), cpu[1])):
+                raise AssertionError(f"nms kernel != plain at N = {n}, seed {s}")
+        sets = [nms_inputs(seed + 100 + i, n) for i in range(400 if n == 4540 else 1)]
+        keep = []
+        ms = graph_ms([lambda a=a: keep.append(knms.batched_nms_op(*a, 0.5, 100)) for a in sets],
+                      len(sets) if n == 4540 else 50)
+        keep.clear()
+        chain_ms = graph_ms([lambda: keep.append(knms.chain_cuda(100, n))], 50)
+        keep.clear()
+        args = sets[0]
+        plain_ms = graph_ms([lambda: keep.append(knms.batched_nms_plain(*args, 0.5, 100))], 3)
+        keep.clear()
+        walls = {}
+        for who, fn in (("kernel", lambda: pnms.batched_nms(*args, 0.5, 100)),
+                        ("plain", lambda: knms.batched_nms_plain(*args, 0.5, 100))):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            walls[who] = (time.perf_counter() - t) / 20 * 1e3
+        del sets
+        torch.cuda.empty_cache()
+        records[n] = dict(n=n, ms=ms, chain_ms=chain_ms, plain_ms=plain_ms,
+                          wall_ms=walls["kernel"], plain_wall_ms=walls["plain"],
+                          kept=int(ok.sum()))
+        log(f"nms kernel N = {n}, max_out 100, threshold 0.5: bit-identical to the plain loop on "
+            f"the card and on the CPU ({len(seeds)} seeds, {int(ok.sum())} kept); kernel "
+            f"{ms:.4f} ms" + (" L2-cold" if n == 4540 else "") + f", latency floor (100 steps "
+            f"of reductions and barrier, no candidates) {chain_ms:.4f} ms, plain loop "
+            f"{plain_ms:.4f} ms of device time replayed, {walls['plain']:.3f} ms wall from the "
+            f"host; the kernel {walls['kernel']:.3f} ms wall through ops/nms.py ({card})")
+    main = records[4540]
+    main["merge"] = records[1000]
+    main["ptxas"] = reports
     return main
 
 
@@ -2243,11 +2335,14 @@ def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
         expected_normal = normal_launches_per_call(predictor, BATCH)
         greedy = {"ms": 0.0, "clusters": 0, "calls": 0}
         sync(device)
-        kdropout.LAUNCHES = knormal.LAUNCHES = 0
+        kdropout.LAUNCHES = knormal.LAUNCHES = knms.LAUNCHES = 0
         with watch_greedy(greedy, device):
             dets = call(seed)
             sync(device)
-        launches, normal_launches = kdropout.LAUNCHES, knormal.LAUNCHES
+        launches, normal_launches, nms_launches = (kdropout.LAUNCHES, knormal.LAUNCHES,
+                                                   knms.LAUNCHES)
+        if device == "cuda" and nms_launches < BATCH:
+            raise AssertionError(f"{name}: {nms_launches} NMS launches for {BATCH} images")
         if launches != expected:
             raise AssertionError(f"{name}: {launches} dropout launches, expected {expected}")
         if normal_launches != expected_normal:
@@ -2291,13 +2386,15 @@ def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
         share, traced_ms = busy_share(lambda: call(seed), device)
         ms = float(np.median(times))
         records[name] = dict(
-            launches=launches, normal_launches=normal_launches, ms=ms, times=times,
+            launches=launches, normal_launches=normal_launches, nms_launches=nms_launches,
+            ms=ms, times=times,
             peak_gib=peak / 2 ** 30,
             head_ms=(t1 - t0) * 1e3, rest_ms=(t2 - t1) * 1e3, busy_share=share,
             traced_ms=traced_ms, valid=n_valid, largest_cluster=biggest,
             greedy_clusters=greedy["clusters"], greedy_ms=greedy["ms"])
         log(f"modes {name}: {launches} dropout launches (expected {expected}), {normal_launches} "
-            f"normal launches (expected {expected_normal}), {n_valid} valid "
+            f"normal launches (expected {expected_normal}), {nms_launches} NMS launches, "
+            f"{n_valid} valid "
             f"detections, largest cluster {biggest}; {ms:.2f} ms/batch median of "
             f"{[round(t, 2) for t in times]}, head {records[name]['head_ms']:.2f} ms, core/mode/"
             f"merge {records[name]['rest_ms']:.2f} ms, traced call {traced_ms:.2f} ms with the "
@@ -3807,13 +3904,14 @@ def main() -> int:
         _build.load(source)
     native_build.join()
     native.load()
-    phase("device (nvcc of csrc/dropout.cu, csrc/focal.cu and csrc/normal.cu, g++ of native/, "
-          "in parallel)", t0)
+    phase("device (nvcc of csrc/dropout.cu, csrc/focal.cu, csrc/normal.cu and csrc/nms.cu, g++ "
+          "of native/, in parallel)", t0)
 
     t0 = time.perf_counter()
     k1 = check_kernel(args.seed, card, args.parent)
     k3 = check_normal_kernel(args.seed, card, args.parent)
-    phase("kernel (dropout and normal)", t0)
+    k4 = check_nms_kernel(args.seed, card)
+    phase("kernel (dropout, normal and NMS)", t0)
 
     t0 = time.perf_counter()
     launches = run_slice(args.seed, card)
@@ -4009,6 +4107,24 @@ def main() -> int:
         "export_live_launches": export["mc_iid"]["live_normal_launches"],
         "export_dropout_launches": export["mc_iid"]["served_launches"],
         "modes_launches": {name: rec["normal_launches"] for name, rec in modes.items()},
+    }, {
+        "name": "batched_nms",
+        "route": "cuda",
+        "source": "pod_compare_tpu_torch/csrc/nms.cu",
+        "replaces": "none: the lax.scan of pod_compare_tpu/ops/nms.py, outside any Pallas kernel",
+        "launches": {name: rec["nms_launches"] for name, rec in modes.items()},
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["chain_ms"],
+        "bound_by": "latency: 100 steps of a block argmax and a barrier (measured)",
+        "library_ms": None,
+        "wall_ms": k4["wall_ms"],
+        "plain_wall_ms": k4["plain_wall_ms"],
+        "ptxas": k4["ptxas"],
+        "shape": [4540, 4],
+        "max_out": 100,
+        "dtype": "float32",
+        "merge": k4["merge"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,7 +10,10 @@ torch and this package's operators, ``pod_compare_tpu_torch::dropout_levels``
 per (run, tower, layer) over the FPN levels; ``::dropout``, its one-tensor
 form, which programs saved before it call),
 ``pod_compare_tpu_torch::normal`` (the normals of the Monte-Carlo sampling
-impls, ``csrc/normal.cu`` on CUDA) and
+impls, ``csrc/normal.cu`` on CUDA),
+``pod_compare_tpu_torch::batched_nms`` (every class-aware NMS, one node and,
+on CUDA, one launch of ``csrc/nms.cu`` a call; programs saved before it hold
+the plain loop's operations instead, and still load and serve) and
 ``pod_compare_tpu_torch::greedy_sequential_clusters`` (the post-NMS merge's
 loop), which importing this module registers; the kernels are built at
 their first launch. It needs no config, no model code, no predictor and no
@@ -54,12 +57,14 @@ from torch import nn
 # The operators the program calls: importing their modules registers them.
 from pod_compare_tpu_torch.ops import fusion as _fusion  # noqa: F401
 from pod_compare_tpu_torch.ops.kernels import dropout as _dropout  # noqa: F401
+from pod_compare_tpu_torch.ops.kernels import nms as _nms  # noqa: F401
 from pod_compare_tpu_torch.ops.kernels import normal as _normal  # noqa: F401
 from pod_compare_tpu_torch.inference.core import Detections
 from pod_compare_tpu_torch.inference.seeds import draw_call_seeds
 
 FORMAT = "pod_compare_tpu_torch.serving/1"
-REQUIRED_OPS = ("pod_compare_tpu_torch::dropout",
+REQUIRED_OPS = ("pod_compare_tpu_torch::batched_nms",
+                "pod_compare_tpu_torch::dropout",
                 "pod_compare_tpu_torch::dropout_levels",
                 "pod_compare_tpu_torch::greedy_sequential_clusters",
                 "pod_compare_tpu_torch::normal")

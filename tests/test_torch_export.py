@@ -13,8 +13,9 @@ It mirrors ``tests/test_export.py`` at its geometry (32x32 canvases, batch
   1e-4 of each field's scale (classes and `valid` exactly), as the float
   predictors already agree;
 * an analytic program keeps four inputs (no sampling seeds) and its node
-  count, and an artifact whose manifest predates the sampled impls' export
-  (no ``sampling_seeds_shape``) still loads and serves;
+  count, an artifact whose manifest predates the sampled impls' export
+  (no ``sampling_seeds_shape``) still loads and serves, and so does one
+  whose program holds the plain NMS loop in place of the NMS operator;
 * the refusal: members placed on two devices;
 * the operators the program calls: ``pod_compare_tpu_torch::dropout``
   equals ``dropout_plain`` bit for bit, and the dropout, greedy-merge and
@@ -59,7 +60,9 @@ from pod_compare_tpu_torch.inference import (
 )
 from pod_compare_tpu_torch.models import build_model, convert
 from pod_compare_tpu_torch.ops.fusion import greedy_sequential_clusters
+from pod_compare_tpu_torch.ops import nms as nms_module
 from pod_compare_tpu_torch.ops.kernels import dropout as kd
+from pod_compare_tpu_torch.ops.kernels import nms as knms
 from pod_compare_tpu_torch.train.checkpoint import Checkpointer
 from test_full_model_parity import make_reference_state
 from test_torch_modes import few_threads  # noqa: F401  (autouse: two torch threads)
@@ -267,14 +270,17 @@ def test_a_cuda_artifact_is_refused_without_cuda(std, tmp_path):
 
 
 def test_an_analytic_program_keeps_four_inputs(std):
-    """No sampling seeds in an analytic program: the four inputs and the
-    2340 graph nodes of this program before the sampled impls exported."""
+    """No sampling seeds in an analytic program: the four inputs, and 1818
+    graph nodes: the 2340 of this program before the sampled impls exported,
+    less the plain NMS loop's 264 of each image, plus the NMS operator's
+    node and its two outputs' (one call an image)."""
     served = std["served"]
     assert served.manifest["sampling_seeds_shape"] is None
     assert len(served.program.graph_signature.user_inputs) == 4
-    assert served.manifest["graph_nodes"] == len(served.program.graph.nodes) == 2340
-    ops = {str(n.target) for n in served.program.graph.nodes}
-    assert "pod_compare_tpu_torch.normal.default" not in ops
+    assert served.manifest["graph_nodes"] == len(served.program.graph.nodes) == 1818
+    targets = [str(n.target) for n in served.program.graph.nodes]
+    assert "pod_compare_tpu_torch.normal.default" not in targets
+    assert targets.count("pod_compare_tpu_torch.batched_nms.default") == BATCH
 
 
 def test_an_artifact_without_sampling_seeds_in_its_manifest_serves(std, tmp_path):
@@ -292,6 +298,22 @@ def test_an_artifact_without_sampling_seeds_in_its_manifest_serves(std, tmp_path
     assert_equal_detections(std["live"](images, INPUT_SIZES, OUTPUT_SIZES, generator(7)),
                             load_artifact(str(artifact))(images, INPUT_SIZES, OUTPUT_SIZES,
                                                          generator(7)))
+
+
+def test_an_artifact_with_the_plain_nms_loop_serves(std, tmp_path):
+    """Programs saved before NMS was one operator hold the plain loop's
+    operations: such an artifact (exported here with the loop called in
+    place of the operator) still loads and serves as the live predictor."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nms_module._knms, "batched_nms_op", knms.batched_nms_plain)
+        artifact = save_artifact(std["live"], str(tmp_path / "plain"), batch_size=BATCH)
+    served = load_artifact(artifact)
+    targets = [str(n.target) for n in served.program.graph.nodes]
+    assert "pod_compare_tpu_torch.batched_nms.default" not in targets
+    assert len(targets) == 2340
+    images = example_batch()
+    assert_equal_detections(std["live"](images, INPUT_SIZES, OUTPUT_SIZES, generator(7)),
+                            served(images, INPUT_SIZES, OUTPUT_SIZES, generator(7)))
 
 
 # ------------------------------------------------------------ refusals

@@ -1,7 +1,7 @@
 """The serving export on a card: artifacts exported for CUDA, saved, loaded
-and served bit for bit as the live predictor, the dropout kernel and (with
-the Monte-Carlo sampling impls) the normal kernel launched as often as in
-the live call; and refused by a process without CUDA.
+and served bit for bit as the live predictor, the dropout and NMS kernels
+and (with the Monte-Carlo sampling impls) the normal kernel launched as
+often as in the live call; and refused by a process without CUDA.
 
 These tests skip where there is no CUDA device. The file imports neither
 JAX nor the JAX package, so on a machine with a card it runs without the
@@ -23,6 +23,7 @@ from pod_compare_tpu_torch.config import get_cfg
 from pod_compare_tpu_torch.inference import build_predictor, load_artifact, save_artifact
 from pod_compare_tpu_torch.models import build_model
 from pod_compare_tpu_torch.ops.kernels import dropout as kd
+from pod_compare_tpu_torch.ops.kernels import nms as knms
 from pod_compare_tpu_torch.ops.kernels import normal as kn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,16 +78,18 @@ def export_and_serve(cfg, path):
     served = load_artifact(save_artifact(live, str(path), batch_size=BATCH))
     counts = []
     for predictor in (live, served):
-        kd.LAUNCHES = kn.LAUNCHES = 0
+        kd.LAUNCHES = kn.LAUNCHES = knms.LAUNCHES = 0
         dets = predictor(images, sizes, sizes, torch.Generator().manual_seed(7))
         torch.cuda.synchronize()
-        counts.append((kd.LAUNCHES, kn.LAUNCHES))
+        counts.append((kd.LAUNCHES, kn.LAUNCHES, knms.LAUNCHES))
         yield dets
     # runs x towers x convs: one launch over the five levels each
     assert counts[0][0] == counts[1][0] == 2 * 2 * 4
     # per image, or per (image, run) unit post-NMS: a class bank and a box chunk
     units = BATCH * (2 if live.post_nms else 1)
     assert counts[0][1] == counts[1][1] == (2 * units if live.sampled else 0)
+    # an NMS a unit, and post-NMS the merge's an image
+    assert counts[0][2] == counts[1][2] == units + (BATCH if live.post_nms else 0)
 
 
 @pytest.mark.parametrize("mode,merge,sampling", [
