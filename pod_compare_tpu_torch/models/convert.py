@@ -114,7 +114,10 @@ def from_reference_state_dict(state: Mapping) -> Dict[str, torch.Tensor]:
     backbone (``stem.*``, ``res{S}.*``). Head tower indices are renumbered
     by order of appearance, since the reference's Sequential also counts
     its ReLU and Dropout modules; config-level constants are dropped.
-    Like the JAX package's ``convert_torch_state_dict``, unknown keys raise."""
+    Like the JAX package's ``convert_torch_state_dict``, unknown keys raise.
+    Tensors keep their shapes, so a ResNeXt's grouped ``conv2`` weights,
+    (mid, mid / NUM_GROUPS, 3, 3), load as they are (FAIR's X-101-32x8d:
+    res4's (1024, 32, 3, 3)) into a model built with the same keys."""
     out: Dict[str, torch.Tensor] = {}
     towers: Dict[str, Dict[int, int]] = {"cls": {}, "bbox": {}}
     for key, value in state.items():

@@ -62,7 +62,8 @@ class Conv2d(nn.Conv2d):
         bias = None if self.bias is None else cast(self.bias, x.dtype)
         if x.device.type == "cpu" and x.dtype == torch.bfloat16:
             bias = None if bias is None else bias.float()
-            x = F.conv2d(x.float(), weight.float(), bias, self.stride, self.padding).to(x.dtype)
+            x = F.conv2d(x.float(), weight.float(), bias, self.stride, self.padding,
+                         self.dilation, self.groups).to(x.dtype)
         else:
-            x = F.conv2d(x, weight, bias, self.stride, self.padding)
+            x = F.conv2d(x, weight, bias, self.stride, self.padding, self.dilation, self.groups)
         return self.norm(x) if self.norm is not None else x

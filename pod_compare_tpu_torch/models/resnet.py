@@ -1,10 +1,19 @@
-"""ResNet backbone (caffe-style bottlenecks, FrozenBN) for RetinaNet-FPN.
+"""ResNet and ResNeXt backbones (bottlenecks, FrozenBN) for RetinaNet-FPN.
 
 Counterpart of ``pod_compare_tpu/models/resnet.py``; parameter names follow
 detectron2's ``build_resnet_backbone`` (``stem.conv1``, ``res{2..5}.{i}``).
 ``freeze_at`` freezes the stem (>= 1) and res2..res{freeze_at} through
 ``requires_grad=False``, where the JAX package stops gradients at the stage
 boundary; FrozenBN tensors are buffers and never train.
+
+ResNeXt (Xie et al., arXiv 1611.05431) as detectron2 builds it from
+MODEL.RESNETS.NUM_GROUPS and WIDTH_PER_GROUP: a bottleneck's width is
+``num_groups * width_per_group`` at res2 and doubles each stage, and its
+3x3 is grouped; the defaults (1, 64) are ResNet's. ``stride_in_1x1`` puts a
+stage's stride in the first 1x1 (caffe/MSRA weights) or in the 3x3
+(torchvision-style and FAIR's ResNeXt weights). The JAX package builds
+ResNet only. ``GROUPED_CONV_CALLS`` counts the forward calls of grouped 3x3s
+on the host.
 """
 
 from typing import Dict, Sequence
@@ -24,29 +33,36 @@ RESNET_STAGES = {
 
 STAGE_STRIDES = {"res2": 4, "res3": 8, "res4": 16, "res5": 32}
 
+GROUPED_CONV_CALLS = 0
 
-def _conv_bn(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
+
+def _conv_bn(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> Conv2d:
     return Conv2d(
-        cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=False,
+        cin, cout, k, stride=stride, padding=(k - 1) // 2, bias=False, groups=groups,
         norm=FrozenBatchNorm2d(cout),
     )
 
 
 class BottleneckBlock(nn.Module):
-    """1x1 (stride) -> 3x3 -> 1x1, FrozenBN + ReLU, projection shortcut when
-    the shape changes."""
+    """1x1 -> 3x3 (in `num_groups` groups) -> 1x1, FrozenBN + ReLU, the
+    stride in the first 1x1 or the 3x3, projection shortcut when the shape
+    changes."""
 
-    def __init__(self, cin: int, cout: int, cmid: int, stride: int, stride_in_1x1: bool = True):
+    def __init__(self, cin: int, cout: int, cmid: int, stride: int, stride_in_1x1: bool = True,
+                 num_groups: int = 1):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.shortcut = _conv_bn(cin, cout, 1, stride) if (cin != cout or stride != 1) else None
         self.conv1 = _conv_bn(cin, cmid, 1, s1)
-        self.conv2 = _conv_bn(cmid, cmid, 3, s3)
+        self.conv2 = _conv_bn(cmid, cmid, 3, s3, num_groups)
         self.conv3 = _conv_bn(cmid, cout, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        global GROUPED_CONV_CALLS
         shortcut = self.shortcut(x) if self.shortcut is not None else x
         y = F.relu(self.conv1(x))
+        if self.conv2.groups > 1:
+            GROUPED_CONV_CALLS += 1
         y = F.relu(self.conv2(y))
         return F.relu(self.conv3(y) + shortcut)
 
@@ -73,18 +89,20 @@ class ResNet(nn.Module):
         res2_out_channels: int = 256,
         stride_in_1x1: bool = True,
         freeze_at: int = 0,
+        num_groups: int = 1,
+        width_per_group: int = 64,
     ):
         super().__init__()
         self.out_features = tuple(out_features)
         self.stem = Stem(stem_channels)
-        cin, cout, cmid = stem_channels, res2_out_channels, stem_channels
+        cin, cout, cmid = stem_channels, res2_out_channels, num_groups * width_per_group
         self.stage_names = []
         for i, num_blocks in enumerate(RESNET_STAGES[depth]):
             name = f"res{i + 2}"
             blocks = []
             for b in range(num_blocks):
                 stride = (1 if i == 0 else 2) if b == 0 else 1
-                blocks.append(BottleneckBlock(cin, cout, cmid, stride, stride_in_1x1))
+                blocks.append(BottleneckBlock(cin, cout, cmid, stride, stride_in_1x1, num_groups))
                 cin = cout
             self.add_module(name, nn.Sequential(*blocks))
             self.stage_names.append(name)

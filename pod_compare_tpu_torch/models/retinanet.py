@@ -1,4 +1,4 @@
-"""Probabilistic RetinaNet: normalize -> R50 -> FPN -> probabilistic head.
+"""Probabilistic RetinaNet: normalize -> ResNet -> FPN -> probabilistic head.
 
 Counterpart of ``pod_compare_tpu/models/retinanet.py``. The head's conv
 towers run layer by layer over the five levels (each level's chain is the
@@ -21,6 +21,12 @@ Parameters are float32; the convolutions compute in the model's
 ``compute_dtype`` (``layers.Conv2d`` casts its weight to the activations'
 dtype). ``init_weights`` draws a fresh model from a generator, with the
 head initialised as the JAX package initialises it.
+
+The backbone is ``resnet.ResNet`` at MODEL.RESNETS' DEPTH, NUM_GROUPS,
+WIDTH_PER_GROUP and STRIDE_IN_1X1: R50 by default, ResNeXt-101-32x8d with
+(101, 32, 8, False). While a profiler records, the training forward opens
+the span ``pod.backbone`` around the backbone and FPN (the predictor opens
+its own around the same call).
 
 ``head_quant='int8'`` (PROBABILISTIC_INFERENCE.HEAD_QUANT, inference only)
 runs the tower convs through ``ops.quant.quantized_conv3x3`` on their
@@ -45,6 +51,7 @@ from pod_compare_tpu_torch.ops.anchors import AnchorGenerator
 from pod_compare_tpu_torch.ops.kernels.dropout import dropout_levels_autograd, dropout_levels_op
 from pod_compare_tpu_torch.ops.quant import quantized_conv3x3
 from pod_compare_tpu_torch.parallel.mesh import BatchShard
+from pod_compare_tpu_torch.utils.profiling import span
 
 TOWERS = ("cls_subnet", "bbox_subnet")
 # The forward-only dropout of a stochastic pass over the levels: the
@@ -264,12 +271,17 @@ class ProbabilisticRetinaNet(nn.Module):
         prior_prob: float = 0.01,
         freeze_at: int = 0,
         head_quant: str = "none",
+        num_groups: int = 1,
+        width_per_group: int = 64,
+        stride_in_1x1: bool = True,
     ):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.in_features = tuple(in_features)
         self.compute_dtype = compute_dtype
-        self.backbone = FPN(ResNet(depth=depth, freeze_at=freeze_at), out_channels=fpn_channels)
+        resnet = ResNet(depth=depth, stride_in_1x1=stride_in_1x1, freeze_at=freeze_at,
+                        num_groups=num_groups, width_per_group=width_per_group)
+        self.backbone = FPN(resnet, out_channels=fpn_channels)
         self.head = ProbabilisticRetinaNetHead(
             num_classes, num_anchors, num_convs, fpn_channels,
             compute_cls_var, compute_bbox_cov, bbox_cov_dims, prior_prob,
@@ -330,7 +342,8 @@ class ProbabilisticRetinaNet(nn.Module):
         kernel, one mask draw per (tower, layer) from `seeds[tower][layer]`,
         per sample unless `batch_shared`; with a `shard`, the images are those
         rows of a global batch and draw its masks (`level_offsets`)."""
-        features = self.backbone_features(images)
+        with span("pod.backbone"):
+            features = self.backbone_features(images)
         tower_dropout = None
         if self.dropout_rate > 0.0:
             tower_dropout = KernelDropout(
@@ -367,6 +380,9 @@ def build_model(cfg, head_quant: str = "none") -> ProbabilisticRetinaNet:
         prior_prob=cfg.MODEL.RETINANET.PRIOR_PROB,
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
         head_quant=head_quant,
+        num_groups=cfg.MODEL.RESNETS.NUM_GROUPS,
+        width_per_group=cfg.MODEL.RESNETS.WIDTH_PER_GROUP,
+        stride_in_1x1=cfg.MODEL.RESNETS.STRIDE_IN_1X1,
     )
 
 

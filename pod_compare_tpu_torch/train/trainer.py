@@ -6,8 +6,10 @@ the forward (per-sample dropout through the dropout kernel, the stochastic
 focal loss through the focal kernel when CLS_VAR_LOSS.IMPL is 'pallas'),
 the backward (the dropout kernel's seed-replay backward) and the SGD update.
 While a profiler records, a step is the span ``pod.step`` around
-``pod.forward``, ``pod.loss`` (with ``pod.matcher``), ``pod.backward`` and
-``pod.optimizer`` (``utils/profiling.span``).
+``pod.forward`` (with the model's ``pod.backbone``), ``pod.loss`` (with
+``pod.matcher``), ``pod.backward`` and ``pod.optimizer``
+(``utils/profiling.span``); under PARALLEL.REMAT the backward's
+recomputation opens ``pod.backbone`` again, inside ``pod.backward``.
 
 The state (step, model, optimizer, EMA loss normalizer, generator) is a
 ``TrainState``. The generator is a host-side ``torch.Generator``: the seeds

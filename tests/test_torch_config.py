@@ -1,7 +1,8 @@
 """The port's config: its YAML-subset reader against PyYAML on every config
 of the repository, and the merged train + inference trees against the JAX
-package's, pair by pair."""
+package's, pair by pair, less the keys only the port has (``PORT_ONLY``)."""
 
+import copy
 import glob
 import os
 
@@ -12,6 +13,7 @@ from pod_compare_tpu import configs_dir
 from pod_compare_tpu.config import get_cfg as jax_get_cfg
 from pod_compare_tpu_torch.config import get_cfg, merge_configs, parse_yaml
 from pod_compare_tpu_torch.config.setup import configs_dir as port_configs_dir
+from pod_compare_tpu_torch.models import build_model
 
 CONFIGS = sorted(
     os.path.relpath(p, configs_dir())
@@ -66,8 +68,26 @@ def test_yaml_reader_refuses_what_it_does_not_support(text):
         parse_yaml(text)
 
 
+# Keys only the port has, with their defaults (ResNeXt's, detectron2's
+# ResNet values); the trees are compared without them.
+PORT_ONLY = {("MODEL", "RESNETS", "NUM_GROUPS"): 1, ("MODEL", "RESNETS", "WIDTH_PER_GROUP"): 64}
+
+
+def shared_tree(tree, defaults=True):
+    """`tree` (a to_dict()) without the port-only keys, which hold their
+    defaults when `defaults`."""
+    tree = copy.deepcopy(tree)
+    for path, value in PORT_ONLY.items():
+        node = tree
+        for key in path[:-1]:
+            node = node[key]
+        assert not defaults or node[path[-1]] == value, path
+        del node[path[-1]]
+    return tree
+
+
 def test_defaults_match():
-    assert get_cfg().to_dict() == jax_get_cfg().to_dict()
+    assert shared_tree(get_cfg().to_dict()) == jax_get_cfg().to_dict()
 
 
 @pytest.mark.parametrize("train", TRAIN)
@@ -76,7 +96,20 @@ def test_train_and_inference_configs_merge_alike(train, inference):
     theirs = jax_get_cfg()
     theirs.merge_from_file(os.path.join(configs_dir(), train))
     theirs.merge_from_file(os.path.join(configs_dir(), inference))
-    assert merge_configs(train, inference).to_dict() == theirs.to_dict()
+    assert shared_tree(merge_configs(train, inference).to_dict()) == theirs.to_dict()
+
+
+def test_the_x101_opts_build_the_published_shapes():
+    opts = ["MODEL.RESNETS.DEPTH", 101, "MODEL.RESNETS.NUM_GROUPS", 32,
+            "MODEL.RESNETS.WIDTH_PER_GROUP", 8, "MODEL.RESNETS.STRIDE_IN_1X1", False,
+            "MODEL.PIXEL_STD", "[57.375, 57.120, 58.395]"]
+    cfg = merge_configs(TRAIN[0], INFERENCE[0], opts)
+    assert cfg.MODEL.PIXEL_STD == [57.375, 57.120, 58.395]
+    bottom_up = build_model(cfg).backbone.bottom_up
+    assert bottom_up.res4[0].conv2.weight.shape == (1024, 32, 3, 3)
+    assert bottom_up.res4[0].conv2.groups == 32 and len(bottom_up.res4) == 23
+    assert bottom_up.res3[0].conv1.stride == (1, 1) and bottom_up.res3[0].conv2.stride == (2, 2)
+    assert sum(p.numel() for n, p in bottom_up.named_parameters()) == 86_539_456
 
 
 def test_overrides_and_unknown_keys():

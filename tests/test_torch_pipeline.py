@@ -39,6 +39,7 @@ from pod_compare_tpu_torch.inference import build_predictor, detections_to_json
 from pod_compare_tpu_torch.models import InjectedMasks, build_model
 from pod_compare_tpu_torch.ops.kernels import dropout as kdropout
 from test_full_model_parity import make_reference_state
+from test_torch_config import shared_tree
 
 TRAIN_CFG = "BDD-Detection/retinanet/retinanet_R_50_FPN_1x_reg_cls_var_dropout.yaml"
 INFER_CFG = "Inference/bayes_od_mc_dropout.yaml"
@@ -179,7 +180,7 @@ def test_configs_merge_to_the_flagship(slice_setup):
     assert pi.BAYES_OD.BOX_MERGE_MODE == "bayesian_inference"
     assert cfg.MODEL.PROBABILISTIC_MODELING.DROPOUT_RATE == 0.2
     assert pi.CLS_SAMPLING == pi.BOX_SAMPLING == "analytic"
-    assert cfg.to_dict() == _jax_cfg().to_dict()
+    assert shared_tree(cfg.to_dict()) == _jax_cfg().to_dict()
 
 
 def test_bayes_od_mc_dropout_classes_and_valid_match_jax(jax_dets, torch_dets):

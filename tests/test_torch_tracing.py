@@ -154,14 +154,34 @@ def test_a_train_step_opens_its_parts_once(trainer, tmp_path):
     tr, batch = trainer
     spans = _spans(lambda: tr.train_step(tr.state, batch), tmp_path)
     counts = Counter(n for n, _, _ in spans)
-    assert counts == Counter({"pod.step": 1, "pod.matcher": 1, **dict.fromkeys(STEP_PARTS, 1)})
+    assert counts == Counter({"pod.step": 1, "pod.matcher": 1, "pod.backbone": 1,
+                              **dict.fromkeys(STEP_PARTS, 1)})
     by_name = {n: (n, s, e) for n, s, e in spans}
     for part in STEP_PARTS:
         assert _inside(by_name[part], by_name["pod.step"]), part
     assert _inside(by_name["pod.matcher"], by_name["pod.loss"])
+    assert _inside(by_name["pod.backbone"], by_name["pod.forward"])
     parts = sorted((by_name[p] for p in STEP_PARTS), key=lambda s: s[1])
     assert [p[0] for p in parts] == list(STEP_PARTS)
     assert all(a[2] <= b[1] for a, b in zip(parts, parts[1:]))
+
+
+def test_remat_opens_the_backbone_again_inside_the_backward(tmp_path):
+    cfg = merge_configs(TRAIN_CFG, "", TRAIN_OPTS + ["OUTPUT_DIR", str(tmp_path),
+                                                      "PARALLEL.REMAT", True])
+    loader = RandomBatches(CANVAS, BATCH, NUM_CLASSES)
+    tr = Trainer(cfg, loader, device="cpu")
+    try:
+        batch = batch_to_device(next(loader.iter_from(0)), "cpu")
+        spans = _spans(lambda: tr.train_step(tr.state, batch), tmp_path)
+    finally:
+        tr.close()
+    backbones = [s for s in spans if s[0] == "pod.backbone"]
+    by_name = {n: (n, s, e) for n, s, e in spans if n != "pod.backbone"}
+    assert len(backbones) == 2
+    assert _inside(backbones[0], by_name["pod.forward"])
+    assert _inside(backbones[1], by_name["pod.backward"])
+    assert not _inside(backbones[0], backbones[1]) and not _inside(backbones[1], backbones[0])
 
 
 def test_without_a_profiler_span_enters_no_record_function(predictors, trainer, monkeypatch):
