@@ -4,7 +4,7 @@
     python chip_smoke.py [--seed N] [--profile] [--parent DIR]
 
 Phases, each printing its seconds on its own line as it ends:
-  1. device: the card's name and power limit (nvidia-smi); build the four
+  1. device: the card's name and power limit (nvidia-smi); build the five
      CUDA kernels of csrc/ with nvcc into build/, one nvcc each, started
      together, and print what ptxas reports of them.
   2. kernel: the dropout kernel against its plain PyTorch version at the
@@ -33,10 +33,18 @@ Phases, each printing its seconds on its own line as it ends:
      bit-identical to its plain loop on the card and on the CPU; its time
      (CUDA-graph replay over 400 input sets, L2-cold) beside its latency
      floor (the same 100 steps' reductions and barrier, no candidates), the
-     plain loop's replayed device time and host-driven wall time.
+     plain loop's replayed device time and host-driven wall time. Then K3,
+     the FrozenBN epilogue (csrc/frozen_bn.cu; ptxas: 12 instances, no
+     stack, no spills), at X101-32x8d's training shapes in bf16
+     channels-last (res2's conv1, res4's conv3 with its identity residual,
+     res3's first conv3 with its projection shortcut): forward and backward
+     bit-identical to its plain version on the card; each one's time (CUDA
+     events, L2-cold) beside its byte bound, the plain version's and the
+     chain of PyTorch operations it replaced.
   3. slice: the flagship BayesOD + MC-dropout(10) predictor at full R50-FPN
      width on the 736x1280 BDD canvas, batch 2, random weights from the
-     seed: the launch count of one call, finite outputs, PSD covariances,
+     seed: the launch counts of one call (the dropout kernel's, and 49 of
+     K3's, one a backbone convolution), finite outputs, PSD covariances,
      a detection and a fused cluster in every image; ms per batch (median
      of 10 calls), img/s and peak device memory.
   4. reference: the same predictor at a small size in float32 on the GPU
@@ -64,8 +72,9 @@ Phases, each printing its seconds on its own line as it ends:
   7. train: the Trainer on the flagship training config with the fused focal
      kernel (CLS_VAR_LOSS.IMPL 'pallas'), batch 4 on the 736x1280 canvas,
      random weights from the seed (the backbone warm-started from a .pth),
-     random ground truth: 6 steps through Trainer.train with 16 dropout and
-     1 focal launch per step, finite losses, frozen stem/res2, moved head, a
+     random ground truth: 6 steps through Trainer.train with 16 dropout, 1
+     focal and 88 K3 launches per step (49 forward, 39 backward: none for
+     the frozen stem and res2), finite losses, frozen stem/res2, moved head, a
      checkpoint read back to the same state; then 1 untimed and 5 timed
      steps: ms/step (median), img/s, peak device memory.
   8. train reference: one train step at a small size in float32 on the GPU
@@ -248,6 +257,7 @@ from pod_compare_tpu_torch.inference import (
 from pod_compare_tpu_torch.inference import modes as pmodes
 from pod_compare_tpu_torch.inference.seeds import draw_call_seeds
 from pod_compare_tpu_torch.models import retinanet as pretinanet
+from pod_compare_tpu_torch.models.layers import FrozenBatchNorm2d
 from pod_compare_tpu_torch.models import (
     KernelDropout,
     TowerDropout,
@@ -262,6 +272,7 @@ from pod_compare_tpu_torch.ops.gaussian import covariance_output_to_cholesky
 from pod_compare_tpu_torch.ops.kernels import _build
 from pod_compare_tpu_torch.ops.kernels import dropout as kdropout
 from pod_compare_tpu_torch.ops.kernels import focal as kfocal
+from pod_compare_tpu_torch.ops.kernels import frozen_bn as kfb
 from pod_compare_tpu_torch.ops.kernels import nms as knms
 from pod_compare_tpu_torch.ops.kernels import normal as knormal
 from pod_compare_tpu_torch.ops import nms as pnms
@@ -302,6 +313,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INSTRUCTIONS_PER_S = 132 * 128 * 1.98e9
 MUFU_PER_S = 132 * 16 * 1.98e9
 TRAIN_BATCH = 4
+# K3's launches in R50: the stem and 3 a block x 16 forward; 3 a block of
+# res3-res5's 13 backward (FREEZE_AT 2 freezes the stem and res2).
+FROZEN_BN_FORWARD, FROZEN_BN_BACKWARD = 49, 39
 TRAIN_P3_SHAPE = (TRAIN_BATCH, 256, CANVAS[0] // 8, CANVAS[1] // 8)
 NUM_CLASSES = 7
 # The least work of the stochastic focal function (csrc/focal.cu), fixed to
@@ -978,6 +992,136 @@ def check_nms_kernel(seed: int, card: str) -> dict:
     return main
 
 
+# K3's shapes: X101-32x8d's training step at batch 16 on 736x1280, bf16
+# channels-last, each (name, shape, side input).
+FROZEN_BN_CASES = (
+    ("x101_res2_conv1", (16, 256, 184, 320), "none"),
+    ("x101_res4_conv3", (16, 1024, 46, 80), "residual"),
+    ("x101_res3_0_conv3", (16, 512, 92, 160), "projection"),
+)
+
+
+def frozen_bn_norm(c: int, seed: int):
+    """A FrozenBN's buffers on the card, float32 as in training, with some
+    scales negative."""
+    gen = torch.Generator().manual_seed(seed)
+    norm = FrozenBatchNorm2d(c)
+    norm.weight.copy_(torch.randn(c, generator=gen))
+    norm.bias.copy_(torch.randn(c, generator=gen) * 0.5)
+    norm.running_mean.copy_(torch.randn(c, generator=gen) * 0.5)
+    norm.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    return norm.cuda()
+
+
+def frozen_bn_library(z, norm, residual=None, shortcut=None, shortcut_norm=None):
+    """The backbone's chain before K3, as separate PyTorch operations in z's
+    dtype: FrozenBN's multiply and add with the pair rebuilt each call, the
+    shortcut's FrozenBN the same way, the residual add, F.relu."""
+    def frozen_bn(x, n):
+        mul = n.weight * torch.rsqrt(n.running_var + n.eps)
+        add = n.bias - n.running_mean * mul
+        return x * mul.to(x.dtype).view(1, -1, 1, 1) + add.to(x.dtype).view(1, -1, 1, 1)
+
+    y = frozen_bn(z, norm)
+    if residual is not None:
+        y = y + residual
+    elif shortcut is not None:
+        y = y + frozen_bn(shortcut, shortcut_norm)
+    return torch.nn.functional.relu(y)
+
+
+def check_frozen_bn_kernel(seed: int, card: str) -> dict:
+    """Phase 2, part 5: ptxas's report of csrc/frozen_bn.cu (no stack, no
+    spills); K3, the FrozenBN epilogue, at X101-32x8d's training shapes
+    (res2's conv1, res4's conv3 with its identity residual, res3's first
+    conv3 with its projection shortcut), forward and backward bit for bit
+    against its plain version on the card; the kernel's device time (CUDA
+    events over 20 back-to-back launches, every tensor past the 50 MB L2),
+    its byte bound (2 B an element read or written once at 3.35 TB/s), the
+    plain version's time and ``library_ms``, the chain of PyTorch
+    operations the backbone ran before K3 (backward: autograd through
+    it)."""
+    reports = {}
+    for name, info in sorted(ptxas_instances(_build.ptxas_report("frozen_bn.cu"),
+                                             "pod_frozen_bn").items()):
+        if len(info) != 4 or info["stack_bytes"] or info["spill_stores"] or info["spill_loads"]:
+            raise AssertionError(f"frozen_bn.cu {name}: stack or spills, or no report: {info}")
+        reports[name] = info
+    if len(reports) != 12:
+        raise AssertionError(f"frozen_bn.cu: {len(reports)} kernel instances, expected 12 (forward "
+                             f"and backward, 3 dtype pairs, 2 layouts)")
+    log(f"ptxas frozen_bn.cu: {len(reports)} instances, "
+        f"{min(r['registers'] for r in reports.values())}-"
+        f"{max(r['registers'] for r in reports.values())} registers, no stack, no spills ({card})")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def tensor(shape):
+        t = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        return t.contiguous(memory_format=torch.channels_last)
+
+    records = {}
+    for i, (name, shape, side) in enumerate(FROZEN_BN_CASES):
+        numel = math.prod(shape)
+        norm = frozen_bn_norm(shape[1], seed + 2 * i)
+        z, n = tensor(shape), kfb.stats(norm)
+        kw = {}
+        if side == "residual":
+            kw["residual"] = tensor(shape)
+        elif side == "projection":
+            kw["shortcut"], kw["shortcut_norm"] = tensor(shape), frozen_bn_norm(shape[1],
+                                                                                 seed + 2 * i + 1)
+        r, zs = kw.get("residual"), kw.get("shortcut")
+        ns = kfb.stats(kw["shortcut_norm"]) if zs is not None else None
+        g = tensor(shape)
+        side_grad = side != "none"
+        launches = kfb.LAUNCHES
+        y = kfb.frozen_bn_act_cuda(z, n, r, zs, ns)
+        grads = kfb.frozen_bn_act_backward_cuda(g, y, n, ns, True, side_grad)
+        torch.cuda.synchronize()
+        if kfb.LAUNCHES != launches + 2:
+            raise AssertionError(f"frozen_bn {name}: {kfb.LAUNCHES - launches} launches, not 2")
+        if not torch.equal(y, kfb.frozen_bn_act_plain(z, n, r, zs, ns)):
+            raise AssertionError(f"frozen_bn kernel != plain at {name}, forward")
+        plain_grads = kfb.frozen_bn_act_backward_plain(g, y, n, ns, True, side_grad)
+        for a, b in zip(grads, plain_grads):
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+                raise AssertionError(f"frozen_bn kernel != plain at {name}, backward")
+        del grads, plain_grads
+        rec = dict(shape=list(shape), side=side, dtype="bfloat16",
+                   ms=event_ms(lambda: kfb.frozen_bn_act_cuda(z, n, r, zs, ns), 20),
+                   bound_ms=2 * numel * (2 + side_grad) / HBM_BYTES_PER_S * 1e3,
+                   plain_ms=event_ms(lambda: kfb.frozen_bn_act_plain(z, n, r, zs, ns), 3),
+                   library_ms=event_ms(lambda: frozen_bn_library(z, norm, **kw), 20),
+                   backward_ms=event_ms(
+                       lambda: kfb.frozen_bn_act_backward_cuda(g, y, n, ns, True, side_grad), 20),
+                   backward_bound_ms=2 * numel * (3 + side_grad) / HBM_BYTES_PER_S * 1e3,
+                   backward_plain_ms=event_ms(
+                       lambda: kfb.frozen_bn_act_backward_plain(g, y, n, ns, True, side_grad), 3))
+        inputs, lkw = [z.detach().requires_grad_(True)], dict(kw)
+        for key in ("residual", "shortcut"):
+            if key in lkw:
+                lkw[key] = lkw[key].detach().requires_grad_(True)
+                inputs.append(lkw[key])
+        chained = frozen_bn_library(inputs[0], norm, **lkw)
+        rec["backward_library_ms"] = event_ms(
+            lambda: torch.autograd.grad(chained, inputs, g, retain_graph=True), 20)
+        del chained, inputs, lkw, kw, z, r, zs, g, y
+        torch.cuda.empty_cache()
+        log(f"frozen_bn kernel {name} {shape} bf16 channels-last, {side}: bit-identical to the "
+            f"plain version forward and backward; forward {rec['ms']:.4f} ms against a bound of "
+            f"{rec['bound_ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}%), plain "
+            f"{rec['plain_ms']:.4f} ms, the former chain {rec['library_ms']:.4f} ms; backward "
+            f"{rec['backward_ms']:.4f} ms against {rec['backward_bound_ms']:.4f} ms "
+            f"({100 * rec['backward_bound_ms'] / rec['backward_ms']:.1f}%), plain "
+            f"{rec['backward_plain_ms']:.4f} ms, the former chain "
+            f"{rec['backward_library_ms']:.4f} ms ({card})")
+        records[name] = rec
+    main = dict(records[FROZEN_BN_CASES[0][0]])
+    main["cases"] = records
+    main["ptxas"] = reports
+    return main
+
+
 def check_detections(dets, output_sizes, min_cluster: int):
     """Finite values, symmetric PSD covariances, boxes inside the image, and
     in every image a valid detection and one fused from >= min_cluster."""
@@ -1024,14 +1168,17 @@ def run_slice(seed: int, card: str):
 
     runs = int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS)
     expected = runs * k1_per_pass(cfg)
-    kdropout.LAUNCHES = 0
+    kdropout.LAUNCHES = kfb.LAUNCHES = 0
     t0 = time.perf_counter()
     dets = call(seed)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = kdropout.LAUNCHES
+    launches, frozen_bn_launches = kdropout.LAUNCHES, kfb.LAUNCHES
     if launches != expected:
         raise AssertionError(f"{launches} dropout launches, expected {expected}")
+    if frozen_bn_launches != FROZEN_BN_FORWARD:
+        raise AssertionError(f"{frozen_bn_launches} FrozenBN epilogue launches, expected "
+                             f"{FROZEN_BN_FORWARD}")
     n_valid, biggest = check_detections(dets, output_sizes, min_cluster=2)
     records = detections_to_json(type(dets)(*[None if f is None else f[0] for f in dets]), 0)
     if not records or set(records[0]) != {"image_id", "category_id", "bbox", "score",
@@ -1058,13 +1205,14 @@ def run_slice(seed: int, card: str):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     ms = float(np.median(times))
-    log(f"slice: {launches} dropout launches (expected {expected}), {n_valid} valid "
+    log(f"slice: {launches} dropout launches (expected {expected}), {frozen_bn_launches} "
+        f"FrozenBN epilogue launches, {n_valid} valid "
         f"detections, largest BayesOD cluster {biggest}, {len(records)} json records; the "
         f"process's first call {first_s:.2f} s")
     log(f"slice: {ms:.2f} ms/batch median of {[round(t, 2) for t in times]}, "
         f"{BATCH / ms * 1e3:.2f} img/s, head bank {(t1 - t0) * 1e3:.2f} ms, core+BayesOD "
         f"{(t2 - t1) * 1e3:.2f} ms, peak memory {peak / 2 ** 30:.3f} GiB ({card})")
-    return launches
+    return launches, frozen_bn_launches
 
 
 def profile_slice(seed: int, card: str) -> None:
@@ -1530,13 +1678,17 @@ def run_train(seed: int, card: str, work: str):
     before = {k: model.state_dict()[k].clone() for k in watched}
     per_step = k1_per_pass(cfg)
     steps = 6
-    kdropout.LAUNCHES = kfocal.LAUNCHES = 0
+    per_step_k3 = FROZEN_BN_FORWARD + FROZEN_BN_BACKWARD
+    kdropout.LAUNCHES = kfocal.LAUNCHES = kfb.LAUNCHES = 0
     trainer.train(max_iter=steps, log_period=steps)
     torch.cuda.synchronize()
-    launches = {"dropout": kdropout.LAUNCHES, "focal": kfocal.LAUNCHES}
-    if launches != {"dropout": 2 * per_step * steps, "focal": steps}:
+    launches = {"dropout": kdropout.LAUNCHES, "focal": kfocal.LAUNCHES,
+                "frozen_bn": kfb.LAUNCHES}
+    if launches != {"dropout": 2 * per_step * steps, "focal": steps,
+                    "frozen_bn": per_step_k3 * steps}:
         raise AssertionError(f"launches {launches} in {steps} steps, expected "
-                             f"{2 * per_step} dropout and 1 focal per step")
+                             f"{2 * per_step} dropout, 1 focal and {per_step_k3} FrozenBN "
+                             f"epilogue per step")
     latest = trainer.storage.latest()
     if not all(math.isfinite(latest[k]) for k in ("loss_cls", "loss_box_reg", "total_loss")):
         raise AssertionError(f"non-finite losses {latest}")
@@ -1557,8 +1709,9 @@ def run_train(seed: int, card: str, work: str):
     if not (torch.equal(saved["generator"], state["generator"])
             and torch.equal(saved["loss_normalizer"], state["loss_normalizer"])):
         raise AssertionError("checkpointed generator or normalizer differs")
-    log(f"train: {steps} steps through Trainer.train, {launches['dropout']} dropout and "
-        f"{launches['focal']} focal launches ({2 * per_step} and 1 per step), losses "
+    log(f"train: {steps} steps through Trainer.train, {launches['dropout']} dropout, "
+        f"{launches['focal']} focal and {launches['frozen_bn']} FrozenBN epilogue launches "
+        f"({2 * per_step}, 1 and {per_step_k3} per step), losses "
         + ", ".join(f"{k} {latest[k]:.4g}" for k in ("loss_cls", "loss_box_reg",
                                                      "num_pos_anchors", "total_loss"))
         + f"; frozen stages unchanged, head moved, checkpoint of step {steps} read back")
@@ -1570,15 +1723,17 @@ def run_train(seed: int, card: str, work: str):
         batch = next(data)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        kdropout.LAUNCHES = kfocal.LAUNCHES = 0
+        kdropout.LAUNCHES = kfocal.LAUNCHES = kfb.LAUNCHES = 0
         metrics = trainer.train_step(trainer.state, batch_to_device(batch, trainer.device))
         torch.cuda.synchronize()
         if i:
             times.append((time.perf_counter() - t0) * 1e3)
-        step_launches = {"dropout": kdropout.LAUNCHES, "focal": kfocal.LAUNCHES}
-        if step_launches != {"dropout": 2 * per_step, "focal": 1}:
+        step_launches = {"dropout": kdropout.LAUNCHES, "focal": kfocal.LAUNCHES,
+                         "frozen_bn": kfb.LAUNCHES}
+        if step_launches != {"dropout": 2 * per_step, "focal": 1, "frozen_bn": per_step_k3}:
             raise AssertionError(f"step launched {step_launches}, expected "
-                                 f"{2 * per_step} dropout and 1 focal")
+                                 f"{2 * per_step} dropout, 1 focal and {per_step_k3} FrozenBN "
+                                 f"epilogue")
     if not math.isfinite(float(metrics["total_loss"])):
         raise AssertionError("non-finite loss in the timed steps")
     peak = torch.cuda.max_memory_allocated()
@@ -3904,17 +4059,18 @@ def main() -> int:
         _build.load(source)
     native_build.join()
     native.load()
-    phase("device (nvcc of csrc/dropout.cu, csrc/focal.cu, csrc/normal.cu and csrc/nms.cu, g++ "
-          "of native/, in parallel)", t0)
+    phase("device (nvcc of csrc/dropout.cu, csrc/focal.cu, csrc/normal.cu, csrc/nms.cu and "
+          "csrc/frozen_bn.cu, g++ of native/, in parallel)", t0)
 
     t0 = time.perf_counter()
     k1 = check_kernel(args.seed, card, args.parent)
     k3 = check_normal_kernel(args.seed, card, args.parent)
     k4 = check_nms_kernel(args.seed, card)
-    phase("kernel (dropout, normal and NMS)", t0)
+    k5 = check_frozen_bn_kernel(args.seed, card)
+    phase("kernel (dropout, normal, NMS and FrozenBN epilogue)", t0)
 
     t0 = time.perf_counter()
-    launches = run_slice(args.seed, card)
+    launches, k5_launches = run_slice(args.seed, card)
     phase("slice", t0)
 
     if args.profile:
@@ -4125,6 +4281,29 @@ def main() -> int:
         "max_out": 100,
         "dtype": "float32",
         "merge": k4["merge"],
+    }, {
+        "name": "frozen_bn_act",
+        "route": "cuda",
+        "source": "pod_compare_tpu_torch/csrc/frozen_bn.cu",
+        "replaces": "none: FrozenBatchNorm's multiply-add in pod_compare_tpu/models/layers.py, "
+                    "which XLA fuses, outside any Pallas kernel",
+        "launches": k5_launches,
+        "max_abs_err": 0.0,
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k5["library_ms"],
+        "backward_ms": k5["backward_ms"],
+        "backward_plain_ms": k5["backward_plain_ms"],
+        "backward_bound_ms": k5["backward_bound_ms"],
+        "backward_library_ms": k5["backward_library_ms"],
+        "shape": k5["shape"],
+        "dtype": "bfloat16",
+        "cases": k5["cases"],
+        "ptxas": k5["ptxas"],
+        "train_launches": train_launches["frozen_bn"],
+        "train_launches_per_step": step_launches["frozen_bn"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

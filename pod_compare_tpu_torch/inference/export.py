@@ -15,7 +15,10 @@ impls, ``csrc/normal.cu`` on CUDA),
 on CUDA, one launch of ``csrc/nms.cu`` a call; programs saved before it hold
 the plain loop's operations instead, and still load and serve) and
 ``pod_compare_tpu_torch::greedy_sequential_clusters`` (the post-NMS merge's
-loop), which importing this module registers; the kernels are built at
+loop) and ``pod_compare_tpu_torch::frozen_bn_act`` (each backbone
+convolution's FrozenBN, ReLU and shortcut, one node and, on CUDA, one
+launch of ``csrc/frozen_bn.cu`` a call; programs saved before it hold the
+separate operations instead), which importing this module registers; the kernels are built at
 their first launch. It needs no config, no model code, no predictor and no
 retrace.
 
@@ -57,6 +60,7 @@ from torch import nn
 # The operators the program calls: importing their modules registers them.
 from pod_compare_tpu_torch.ops import fusion as _fusion  # noqa: F401
 from pod_compare_tpu_torch.ops.kernels import dropout as _dropout  # noqa: F401
+from pod_compare_tpu_torch.ops.kernels import frozen_bn as _frozen_bn  # noqa: F401
 from pod_compare_tpu_torch.ops.kernels import nms as _nms  # noqa: F401
 from pod_compare_tpu_torch.ops.kernels import normal as _normal  # noqa: F401
 from pod_compare_tpu_torch.inference.core import Detections

@@ -10,6 +10,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from pod_compare_tpu_torch.ops.kernels import frozen_bn as kfb
+
 
 def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """t in `dtype`, with no cast where it has that dtype already (an
@@ -19,8 +21,17 @@ def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm with frozen statistics and affine parameters (detectron2's
-    FrozenBatchNorm2d, eps 1e-5). The folded multiply-add is computed in
-    float32 and cast to the input's dtype, as the JAX FrozenBatchNorm does."""
+    FrozenBatchNorm2d, eps 1e-5), folded into a per-channel pair: mul =
+    weight·rsqrt(running_var + eps) and add = bias - running_mean·mul in the
+    buffers' dtype (float32; bfloat16 once ``cast_convs`` has cast them with
+    their convolution), each rounded to the input's dtype, as the JAX
+    FrozenBatchNorm casts them; x·mul + add is computed in float32 from
+    those values and rounded once to the input's dtype. The backbone calls
+    `act`, which applies it with the ReLU and the residual or projection
+    shortcut that follow it in a bottleneck, in one pass of the FrozenBN
+    epilogue (``ops/kernels/frozen_bn.py``, the kernel K3 on the card); the
+    module's own forward, the FrozenBN alone, is plain PyTorch. Its four
+    buffers are what a checkpoint holds."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -30,11 +41,14 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def act(self, z: torch.Tensor, residual: Optional[torch.Tensor] = None,
+            shortcut: Optional[torch.Tensor] = None,
+            shortcut_norm: Optional["FrozenBatchNorm2d"] = None) -> torch.Tensor:
+        """relu(self(z) [+ residual | + shortcut_norm(shortcut)]) in one pass."""
+        return kfb.frozen_bn_act(z, self, residual, shortcut, shortcut_norm)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        add = self.bias - self.running_mean * mul
-        shape = (1, -1, 1, 1)
-        return x * cast(mul, x.dtype).view(shape) + cast(add, x.dtype).view(shape)
+        return kfb.frozen_bn_plain(x, kfb.stats(self))
 
 
 class Conv2d(nn.Conv2d):
@@ -57,7 +71,8 @@ class Conv2d(nn.Conv2d):
         super().__init__(*args, **kwargs)
         self.norm = norm
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def convolve(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution alone, without `norm`."""
         weight = cast(self.weight, x.dtype)
         bias = None if self.bias is None else cast(self.bias, x.dtype)
         if x.device.type == "cpu" and x.dtype == torch.bfloat16:
@@ -66,4 +81,8 @@ class Conv2d(nn.Conv2d):
                          self.dilation, self.groups).to(x.dtype)
         else:
             x = F.conv2d(x, weight, bias, self.stride, self.padding, self.dilation, self.groups)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.convolve(x)
         return self.norm(x) if self.norm is not None else x

@@ -46,7 +46,10 @@ def _conv_bn(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> C
 class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 (in `num_groups` groups) -> 1x1, FrozenBN + ReLU, the
     stride in the first 1x1 or the 3x3, projection shortcut when the shape
-    changes."""
+    changes. Each convolution hands its raw output to its FrozenBN's `act`,
+    one pass of the FrozenBN epilogue; conv3's also adds the identity
+    shortcut, or the projection shortcut's raw output under its own
+    FrozenBN, before the ReLU."""
 
     def __init__(self, cin: int, cout: int, cmid: int, stride: int, stride_in_1x1: bool = True,
                  num_groups: int = 1):
@@ -59,12 +62,15 @@ class BottleneckBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         global GROUPED_CONV_CALLS
-        shortcut = self.shortcut(x) if self.shortcut is not None else x
-        y = F.relu(self.conv1(x))
+        shortcut = self.shortcut.convolve(x) if self.shortcut is not None else None
+        y = self.conv1.norm.act(self.conv1.convolve(x))
         if self.conv2.groups > 1:
             GROUPED_CONV_CALLS += 1
-        y = F.relu(self.conv2(y))
-        return F.relu(self.conv3(y) + shortcut)
+        y = self.conv2.norm.act(self.conv2.convolve(y))
+        z = self.conv3.convolve(y)
+        if shortcut is None:
+            return self.conv3.norm.act(z, residual=x)
+        return self.conv3.norm.act(z, shortcut=shortcut, shortcut_norm=self.shortcut.norm)
 
 
 class Stem(nn.Module):
@@ -75,7 +81,7 @@ class Stem(nn.Module):
         self.conv1 = _conv_bn(3, channels, 7, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.max_pool2d(F.relu(self.conv1(x)), 3, stride=2, padding=1)
+        return F.max_pool2d(self.conv1.norm.act(self.conv1.convolve(x)), 3, stride=2, padding=1)
 
 
 class ResNet(nn.Module):

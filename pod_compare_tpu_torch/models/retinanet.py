@@ -311,9 +311,9 @@ class ProbabilisticRetinaNet(nn.Module):
         return self
 
     def cast_convs(self) -> "ProbabilisticRetinaNet":
-        """Cast conv weights to the compute dtype; FrozenBN stays float32, and
-        so do the int8 head's tower convs, which quantize their float32
-        weights."""
+        """Cast conv weights, and the buffers of the FrozenBNs they hold, to
+        the compute dtype; the int8 head's tower convs, which quantize their
+        float32 weights, stay float32."""
         keep = set()
         if self.head.quant != "none":
             keep = {id(c) for t in range(2) for c in self.head._convs(t)}

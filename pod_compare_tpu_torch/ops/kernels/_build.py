@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("dropout.cu", "focal.cu", "normal.cu", "nms.cu")
+SOURCES = ("dropout.cu", "focal.cu", "normal.cu", "nms.cu", "frozen_bn.cu")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}

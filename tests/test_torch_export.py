@@ -270,17 +270,22 @@ def test_a_cuda_artifact_is_refused_without_cuda(std, tmp_path):
 
 
 def test_an_analytic_program_keeps_four_inputs(std):
-    """No sampling seeds in an analytic program: the four inputs, and 1818
+    """No sampling seeds in an analytic program: the four inputs, and 1325
     graph nodes: the 2340 of this program before the sampled impls exported,
     less the plain NMS loop's 264 of each image, plus the NMS operator's
-    node and its two outputs' (one call an image)."""
+    node and its two outputs' (one call an image), 1818; less the 542 nodes
+    of the backbone's 53 FrozenBNs (9 each: the pair's add, rsqrt, three
+    multiplies and subtract, two views, the add), 49 ReLUs and 16 residual
+    adds, plus one FrozenBN epilogue node for each of its 49 convolutions
+    (the 4 projection shortcuts' FrozenBNs inside conv3's)."""
     served = std["served"]
     assert served.manifest["sampling_seeds_shape"] is None
     assert len(served.program.graph_signature.user_inputs) == 4
-    assert served.manifest["graph_nodes"] == len(served.program.graph.nodes) == 1818
+    assert served.manifest["graph_nodes"] == len(served.program.graph.nodes) == 1325
     targets = [str(n.target) for n in served.program.graph.nodes]
     assert "pod_compare_tpu_torch.normal.default" not in targets
     assert targets.count("pod_compare_tpu_torch.batched_nms.default") == BATCH
+    assert targets.count("pod_compare_tpu_torch.frozen_bn_act.default") == 49
 
 
 def test_an_artifact_without_sampling_seeds_in_its_manifest_serves(std, tmp_path):
@@ -310,7 +315,7 @@ def test_an_artifact_with_the_plain_nms_loop_serves(std, tmp_path):
     served = load_artifact(artifact)
     targets = [str(n.target) for n in served.program.graph.nodes]
     assert "pod_compare_tpu_torch.batched_nms.default" not in targets
-    assert len(targets) == 2340
+    assert len(targets) == 1847  # 2340 less the 493 that the FrozenBN epilogue saves
     images = example_batch()
     assert_equal_detections(std["live"](images, INPUT_SIZES, OUTPUT_SIZES, generator(7)),
                             served(images, INPUT_SIZES, OUTPUT_SIZES, generator(7)))
