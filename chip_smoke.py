@@ -1,46 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check what comes out.
 
-    python chip_smoke.py [--seed N] [--profile] [--parent DIR]
+    python chip_smoke.py [--seed N] [--profile]
 
 Phases, each printing its seconds on its own line as it ends:
   1. device: the card's name and power limit (nvidia-smi); build the five
      CUDA kernels of csrc/ with nvcc into build/, one nvcc each, started
      together, and print what ptxas reports of them.
-  2. kernel: the dropout kernel against its plain PyTorch version at the
-     main path's P3 shape, float32 and bfloat16, per-sample and
-     batch-shared: bit-identical outputs, keep share inside a binomial band,
-     one mask across the batch when shared; kernel, plain and bound times
-     (device time of launches replayed from a CUDA graph, on inputs that
-     do not fit in L2 and on one that does). Its grouped launch over the
-     five FPN levels of a (run, tower, layer), at both canvases' P3-P7,
-     bf16 and f32, per-sample and batch-shared: bit-identical to its plain
-     version; its time at 736x1280 beside the group's byte bound, this
-     kernel launched once a level and F.dropout. Then ptxas's report of
-     every kernel of csrc/normal.cu and csrc/dropout.cu (no stack, no
-     spills) and the SASS per normal of the normal kernel's main instance
-     (cuobjdump); the normal kernel at the mc_iid flagship's class bank
-     (10, 176580, 7) and box chunk (100, 4540, 4), float32: bit-identical to
-     its plain version on the card and on the CPU, within 4 ulps of float64
-     Box-Muller (magnitudes >= 1e-3), the law of its draws; its time (each
-     replayed launch writing a fresh buffer) beside the plain version's,
-     torch.randn's and the bound. With --parent DIR, the dropout kernel of
-     the checkout in DIR too (the P3 launches and the group's five, one a
-     level, bit-identical and timed in turns with this one) and its normal
-     kernel at the class bank, timed in turns. Last, the class-aware NMS
-     kernel (csrc/nms.cu; ptxas: no spills) at the pre-NMS paths' 4,540
-     candidates, max_out 100, over three seeds, and at the merge's 1,000:
-     bit-identical to its plain loop on the card and on the CPU; its time
-     (CUDA-graph replay over 400 input sets, L2-cold) beside its latency
-     floor (the same 100 steps' reductions and barrier, no candidates), the
-     plain loop's replayed device time and host-driven wall time. Then K3,
-     the FrozenBN epilogue (csrc/frozen_bn.cu; ptxas: 12 instances, no
-     stack, no spills), at X101-32x8d's training shapes in bf16
-     channels-last (res2's conv1, res4's conv3 with its identity residual,
-     res3's first conv3 with its projection shortcut): forward and backward
-     bit-identical to its plain version on the card; each one's time (CUDA
-     events, L2-cold) beside its byte bound, the plain version's and the
-     chain of PyTorch operations it replaced.
+  2. kernels: every row of KERNEL_CASES, one kernel of csrc/ at one shape
+     of the main paths (K1's grouped forward, bf16 and float32, and its
+     grouped backward; K2 at S = 10; the normal kernel's class bank and box
+     chunk; the NMS kernel at 4,540 and 1,000 candidates; K3 forward and
+     backward at three of X101-32x8d's shapes), timed alike: the kernel and
+     its plain version (and PyTorch's own call, where there is one) in CUDA
+     graphs over copies of their inputs past the L2, beside the kernel's
+     bound. Before its timing each row's kernel is held against its plain
+     version on one input set: bit for bit, K2 within 1e-5 of each output's
+     scale. tests/test_torch_*_cuda.py hold the kernels at more shapes.
   3. slice: the flagship BayesOD + MC-dropout(10) predictor at full R50-FPN
      width on the 736x1280 BDD canvas, batch 2, random weights from the
      seed: the launch counts of one call (the dropout kernel's, and 49 of
@@ -49,27 +25,7 @@ Phases, each printing its seconds on its own line as it ends:
      of 10 calls), img/s and peak device memory.
   4. reference: the same predictor at a small size in float32 on the GPU
      against its plain PyTorch path on the CPU, same weights, same masks.
-  5. focal kernel: what ptxas reported of each instance of the stochastic
-     focal kernel (registers; no stack, no spills) and, where cuobjdump is
-     found, the SASS instructions and MUFU operations per element of the
-     main path's instance; the kernel against its plain version at the
-     training path's shape (4, 176580, 7), S = 10 and S = 3: every plane
-     finite and within 1e-5 of its scale; kernel time (CUDA-graph replay,
-     L2-cold), its bound (the largest of bytes, instruction issue and MUFU
-     work, counted from the function), the plain version's time, and the
-     'threefry' sample bank's for context; a data-parallel process's rows
-     [2:] launched at their index base, bit-identical to the whole launch's
-     rows. With --parent DIR, the focal kernel of the checkout in DIR too,
-     bit-identical to this one at index base 0 and timed in turns with it.
-  6. dropout backward: the dropout kernel's forward and its seed-replay
-     backward against their plain versions at the P3 shape of a training
-     step, bf16 and f32, per-sample and batch-shared masks, channels_last
-     and NCHW cotangents: bit-identical; the backward's time and byte bound.
-     The same over a training step's five levels in one launch each way;
-     the grouped backward's time (bf16, per-sample) beside its bound, this
-     kernel once a level and, with --parent, the parent's five launches in
-     turns.
-  7. train: the Trainer on the flagship training config with the fused focal
+  5. train: the Trainer on the flagship training config with the fused focal
      kernel (CLS_VAR_LOSS.IMPL 'pallas'), batch 4 on the 736x1280 canvas,
      random weights from the seed (the backbone warm-started from a .pth),
      random ground truth: 6 steps through Trainer.train with 16 dropout, 1
@@ -77,14 +33,14 @@ Phases, each printing its seconds on its own line as it ends:
      the frozen stem and res2), finite losses, frozen stem/res2, moved head, a
      checkpoint read back to the same state; then 1 untimed and 5 timed
      steps: ms/step (median), img/s, peak device memory.
-  8. train reference: one train step at a small size in float32 on the GPU
+  6. train reference: one train step at a small size in float32 on the GPU
      against the same step on the CPU through the plain versions, same
      weights, seeds and batch, the CPU's tower dropout keeping the GPU's
      ReLU gates (an input within rounding of 0 can take either sign on two
      devices): losses and every gradient within 1e-3 of each tensor's
      scale, and at most 1e-5 of the CPU's own gates differing from the
      GPU's. The same step with the CPU's own gates is printed beside it.
-  9. eval: apply_net's main, as `python -m pod_compare_tpu_torch.cli.apply_net`
+  7. eval: apply_net's main, as `python -m pod_compare_tpu_torch.cli.apply_net`
      runs it, on 32 synthetic PNGs at BDD's 720x1280 (1-30 boxes, 7 classes)
      laid out as bdd_val under --dataset-dir, with the seeded, tempered
      weights saved as the checkpoint it loads: the loader (cv2 decode, resize
@@ -98,7 +54,7 @@ Phases, each printing its seconds on its own line as it ends:
      seconds, host decode and resize ms per image, peak device memory; then
      the loader alone (img/s) and the predictor alone on its first batch
      (ms/batch), to split the loader-fed time.
- 10. train_net: train_net's main, as `python -m pod_compare_tpu_torch.cli.train_net`
+  8. train_net: train_net's main, as `python -m pod_compare_tpu_torch.cli.train_net`
      runs it, on the flagship training config with the fused focal kernel:
      48 train and 16 val JPEGs at BDD's 720x1280 (cv2, quality 90; 1-30
      boxes, 7 classes) in BDD's layout under --dataset-dir, the backbone
@@ -113,7 +69,7 @@ Phases, each printing its seconds on its own line as it ends:
      theirs. Loader-fed ms/step, Trainer.test seconds, peak device memory;
      TrainLoader alone with threads and with spawned processes (the same
      batches), and cv2 decode and resize ms per JPEG.
- 11. modes: every file of configs/Inference/, bayes_od.yaml with
+  9. modes: every file of configs/Inference/, bayes_od.yaml with
      covariance intersection and the flagship with CLS_SAMPLING and
      BOX_SAMPLING mc_iid (S = 10 and 1000), each through the predictor at
      full width on the 736x1280 canvas, batch 2, bf16; the ensembles with
@@ -133,9 +89,9 @@ Phases, each printing its seconds on its own line as it ends:
      seeds on both sides), against the CPU at 128x128 in float32, M = 3:
      detections matched by class and IoU, at most 1% flips, matched values
      within 1e-3. Then apply_net's main
-     on ensembles_post_nms over 8 of phase 9's PNGs, the five members
+     on ensembles_post_nms over 8 of phase 7's PNGs, the five members
      from their random_seed_<seed> sibling checkpoints.
- 12. rest: apply_net's main on 16 of phase 9's PNGs and its checkpoint with
+ 10. rest: apply_net's main on 16 of phase 7's PNGs and its checkpoint with
      --batch-size auto (the peak-memory guard's probes at batch 1 and 2, its
      linear fit, the budget, the chosen batch, whose measured peak must fit)
      and --run-pdq (PDQ finite in [0, 1], its seconds), then
@@ -152,7 +108,7 @@ Phases, each printing its seconds on its own line as it ends:
      estimate; one flagship train step without and with PARALLEL.REMAT from
      the same state and seeds: losses equal, gradients within 1e-5 of
      scale, REMAT's peak lower.
- 13. parallel: more than one process (parallel/), on 8 of phase 9's PNGs
+ 11. parallel: more than one process (parallel/), on 8 of phase 7's PNGs
      and its checkpoint: apply_net's main on the flagship in one process
      spawned by parallel.launch (NCCL) against the same run without a
      process group; two processes on the one card (gloo: NCCL refuses two
@@ -162,7 +118,7 @@ Phases, each printing its seconds on its own line as it ends:
      1% flips, values within 1e-3); --num-devices above the card count
      refused, naming both numbers; train_net's main (the flagship training
      config with the focal kernel, float32, batch 4, three steps and an
-     evaluation, on phase 10's JPEGs warm-started from its .pkl) on two
+     evaluation, on phase 8's JPEGs warm-started from its .pkl) on two
      processes sharing the card (gloo over CUDA tensors), launched as
      --num-devices launches them, against train_net's main on one process
      and twice on one process taking each step's backward over the two
@@ -178,10 +134,10 @@ Phases, each printing its seconds on its own line as it ends:
      one-process step's (which sums over the four images in one call),
      ReLU and log-variance clamp gates that differ at most 1e-5 of them, 16
      dropout and 1 focal launches per rank, ms/step per rank beside the
-     one process's; phase 11's five ensemble members placed by
+     one process's; phase 9's five ensemble members placed by
      create_ensemble_placement, bit-identical to the unplaced predictor;
      resize_and_pad of two 720x1280 frames on the card against the CPU.
- 14. export: the serving export (inference/export.py) through
+ 12. export: the serving export (inference/export.py) through
      cli.export_model, as a user runs it, from a checkpoint of the seeded,
      tempered flagship weights: the flagship (10 runs, batch 2, 736x1280,
      bf16), mc_dropout_ensembles_post_nms cut to 2 runs and batch 1, and
@@ -195,29 +151,31 @@ Phases, each printing its seconds on its own line as it ends:
      flagship, 16 and 11 for the mc_iid one); torch.export and
      torch.export.save seconds, graph nodes, load seconds, the first served
      call and the median of 5 in ms/batch beside the live predictor's.
-Then one JSON line of the kernels, the nvidia-smi line, and the result line.
+Then the kernels line, {"kernels": [...]}, one record a row of phase 2 with
+its launch counts on the main paths (phases 3-12) filled in, the
+nvidia-smi line, and the result line.
 
 It needs a CUDA device and the repository around it; it exits non-zero
 without either, and on any failed check.
 """
 
 import argparse
+import collections
 import contextlib
-import ctypes
+import dataclasses
 import hashlib
-import importlib.util
 import io
 import json
 import math
 import os
 import pickle
-import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from typing import Callable, Optional
 
 import cv2
 import numpy as np
@@ -275,7 +233,6 @@ from pod_compare_tpu_torch.ops.kernels import focal as kfocal
 from pod_compare_tpu_torch.ops.kernels import frozen_bn as kfb
 from pod_compare_tpu_torch.ops.kernels import nms as knms
 from pod_compare_tpu_torch.ops.kernels import normal as knormal
-from pod_compare_tpu_torch.ops import nms as pnms
 from pod_compare_tpu_torch.ops.matcher import label_anchors_batch
 from pod_compare_tpu_torch.ops import quant as pquant
 from pod_compare_tpu_torch.ops.preprocess import resize_and_pad
@@ -303,7 +260,6 @@ CANVAS = (736, 1280)  # BDD 720x1280 padded to a multiple of 32
 BATCH = 2
 P3_SHAPE = (BATCH, 256, CANVAS[0] // 8, CANVAS[1] // 8)
 EVAL_CANVAS = (768, 1344)  # 720x1280 resized to 750x1333 (MIN 800, MAX 1333), padded to /32
-EVAL_P3_SHAPE = (BATCH, 256, EVAL_CANVAS[0] // 8, EVAL_CANVAS[1] // 8)
 IMAGE_SIZES = np.array([[720, 1280]] * BATCH, np.float32)  # (h, w) before padding
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # H100 SXM at its 1.98 GHz boost clock (NVIDIA data sheet): 132 SMs issue 128
@@ -316,8 +272,13 @@ TRAIN_BATCH = 4
 # K3's launches in R50: the stem and 3 a block x 16 forward; 3 a block of
 # res3-res5's 13 backward (FREEZE_AT 2 freezes the stem and res2).
 FROZEN_BN_FORWARD, FROZEN_BN_BACKWARD = 49, 39
-TRAIN_P3_SHAPE = (TRAIN_BATCH, 256, CANVAS[0] // 8, CANVAS[1] // 8)
 NUM_CLASSES = 7
+ANCHORS = 176580  # 9 a cell of P3-P7 on the 736x1280 canvas
+# The kernels phase's copies of a call's inputs and outputs exceed the H100's
+# 50 MB L2 twice over; each kernel is replayed KERNEL_ITERS times (or once a
+# copy, if more) and its plain version PLAIN_ITERS times.
+L2_COLD_BYTES = 120_000_000
+KERNEL_ITERS, PLAIN_ITERS = 50, 3
 # The least work of the stochastic focal function (csrc/focal.cu), fixed to
 # the function and not to any implementation of it: each add, multiply, FMA,
 # compare, select, shift, logical op, conversion or transcendental as one
@@ -333,7 +294,6 @@ NUM_CLASSES = 7
 # (3): 22, of which 3 MUFU. At S = 10: 404 instructions and 51 MUFU per
 # element.
 FOCAL_OPS = {"element": (24, 1), "pair": (32, 4), "draw": (22, 3)}
-FOCAL_MAIN = "focal_kernelILi10ELb1ELb1E"  # focal_kernel<10, true, true>, the main path's
 # The least work of the normal function (csrc/normal.cu), counted as
 # FOCAL_OPS is: per Philox block of four normals, the counter's two words
 # and ten rounds of two high and two low multiplies and four xors, with
@@ -342,13 +302,6 @@ FOCAL_MAIN = "focal_kernelILi10ELb1ELb1E"  # focal_kernel<10, true, true>, the m
 # (2), the two products (2): 14, of which 4 MUFU. 32 instructions and 2
 # MUFU a normal.
 NORMAL_OPS = {"block": (100, 0), "pair": (14, 4)}
-# The normal kernel's shapes on the mc_iid flagship's path: an image's class
-# bank (S = 10, 176,580 anchors, 7 classes) and a box chunk (100 of the
-# 1000 samples of 4,540 candidates, pick_chunk's chunk), whose rows are
-# keyed by the candidates' anchors (of 176,580).
-NORMAL_SHAPES = {"class bank": (10, 176580, 7), "box chunk": (100, 4540, 4)}
-NORMAL_ROWS = 176580
-NORMAL_MAIN = "normal_kernelIfLb1EE"  # normal_kernel<float, true>, the class bank's
 MAX_GATE_FLIPS = 1e-5  # share of tower gates the GPU and CPU may disagree on
 RESNET_BLOCKS = {"res2": 3, "res3": 4, "res4": 6, "res5": 3}
 
@@ -499,10 +452,7 @@ def canvases(seed: int, size, batch: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-# ------------------------------------------------------------ phases
-MASK64 = 0xFFFFFFFFFFFFFFFF
-
-
+# ------------------------------------------------------------ kernels
 def level_shapes(canvas, batch: int):
     """The five FPN levels' tower shapes on a canvas, P3-P7."""
     return [(batch, 256, -(-canvas[0] // s), -(-canvas[1] // s)) for s in (8, 16, 32, 64, 128)]
@@ -513,406 +463,84 @@ def random_levels(gen, shapes, dtype):
             .contiguous(memory_format=torch.channels_last) for shape in shapes]
 
 
-def parent_dropout(parent: str):
-    """The dropout kernel of the checkout at `parent` (another commit's),
-    one tensor a launch, as ``(forward, backward)``: ``forward(x, out, seed,
-    rate, batch_shared, offset, relu)`` and ``backward(g, gate, dx, ...)``,
-    through its one-tensor C entry points."""
-    lib = parent_library(parent, "dropout.cu")
-    common = [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_ulonglong,
-              ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    lib.pod_dropout_forward.argtypes = [ctypes.c_void_p] * 2 + common
-    lib.pod_dropout_backward.argtypes = [ctypes.c_void_p] * 3 + common
-    lib.pod_dropout_forward.restype = lib.pod_dropout_backward.restype = ctypes.c_int
-
-    def call(fn, pointers, x, seed, rate, batch_shared, offset, relu):
-        outer = x.shape[0] if batch_shared else 1
-        err = fn(*pointers, kdropout._DTYPE_CODES[x.dtype], x.numel() // outer, outer, offset,
-                 seed & MASK64, kdropout.keep_threshold(rate), kdropout.keep_scale(rate, x.dtype),
-                 int(relu), torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"parent dropout kernel launch failed with cudaError_t {err}")
-
-    def forward(x, out, *args):
-        call(lib.pod_dropout_forward, (x.data_ptr(), out.data_ptr()), x, *args)
-
-    def backward(g, gate, dx, *args):
-        call(lib.pod_dropout_backward, (g.data_ptr(), gate.data_ptr(), dx.data_ptr()), g, *args)
-
-    return forward, backward
-
-
-def in_turns(old, new, iters: int) -> dict:
-    """graph_ms of `old` and `new` in turns: old, new, new, old."""
-    turns = {"parent": [], "this": []}
-    for who in ("parent", "this", "this", "parent"):
-        turns[who].append(graph_ms(old if who == "parent" else new, iters))
-    return turns
-
-
-def check_kernel(seed: int, card: str, parent=None):
-    """Phase 2. Returns the numbers of the bf16 batch-shared case, the one
-    the main paths launch, at the slice's P3 and (under "eval") at
-    apply_net's, and (under "f32") of the float32 batch-shared case at the
-    slice's P3, the one the int8 head's MC bank launches (phase 12); with
-    `parent`, each beside the parent's kernel in turns."""
+def dropout_group(seed: int, canvas, batch: int, dtype, shared: bool):
+    """The arguments of one grouped K1 forward, relu on: the five FPN
+    levels of a (run, tower, layer) on the card, their offsets in one draw."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rate = 0.2
-    main = f32 = None
-    parent_fwd = parent_dropout(parent)[0] if parent else None
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn(P3_SHAPE, generator=gen, device="cuda").to(dtype)
-        x = x.contiguous(memory_format=torch.channels_last)
-        positive = x.abs() + 1.0
-        x_bytes = x.numel() * x.element_size()
-        bits = torch.int32 if dtype == torch.float32 else torch.int16
-        for shared in (False, True):
-            args = dict(seed=seed * 7919 + 17, rate=rate, batch_shared=shared, offset=256)
-            k = kdropout.dropout_cuda(x, relu=True, **args)
-            p = kdropout.dropout_plain(x, relu=True, **args)
-            torch.cuda.synchronize()
-            if not torch.equal(k.view(bits), p.view(bits)):
-                raise AssertionError(f"kernel != plain ({dtype}, shared={shared})")
-            err = float((k.float() - p.float()).abs().max())
-            kp = kdropout.dropout_cuda(positive, **args)
-            dropped = kp == 0
-            n = dropped[0].numel() if shared else dropped.numel()
-            share = float(dropped[0].float().mean() if shared else dropped.float().mean())
-            band = 6.0 * math.sqrt(rate * (1 - rate) / n)
-            if abs(share - rate) > band:
-                raise AssertionError(f"drop share {share} outside {rate} +- {band}")
-            if shared and not torch.equal(dropped[0], dropped[1]):
-                raise AssertionError("batch-shared mask differs across the batch")
-            if not shared and torch.equal(dropped[0], dropped[1]):
-                raise AssertionError("per-sample masks repeat across the batch")
-            # L2-cold: launches cycle through copies of x that together
-            # exceed the 50 MB L2 twice over; L2-warm: one x again and again.
-            copies = [x.clone() for _ in range(max(2, -(-120_000_000 // x_bytes)))]
-            kernel = [lambda c=c: kdropout.dropout_cuda(c, relu=True, **args) for c in copies]
-            ms = graph_ms(kernel, 100)
-            warm_ms = graph_ms(kernel[:1], 100)
-            plain_ms = graph_ms(
-                [lambda c=c: kdropout.dropout_plain(c, relu=True, **args) for c in copies], 10)
-            torch_ms = graph_ms(
-                [lambda c=c: torch.nn.functional.dropout(c, rate) for c in copies], 100)
-            bound_ms = 2 * x_bytes / HBM_BYTES_PER_S * 1e3
-            log(f"kernel {str(dtype)[6:]} shared={shared}: bit-identical, drop share "
-                f"{share:.5f} (band {band:.5f}), kernel {ms:.4f} ms L2-cold / {warm_ms:.4f} ms "
-                f"L2-warm, plain {plain_ms:.4f} ms, "
-                f"F.dropout {torch_ms:.4f} ms, bound {bound_ms:.4f} ms ({card})")
-            numbers = dict(max_abs_err=err, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, torch_dropout_ms=torch_ms, in_turns_ms=None)
-            if parent_fwd is not None and shared:
-                outs = [torch.empty_like(c) for c in copies]
-                parent_fwd(x, outs[0], args["seed"], rate, shared, args["offset"], True)
-                if not torch.equal(outs[0].view(bits), k.view(bits)):
-                    raise AssertionError(f"the parent's kernel differs from this one ({dtype})")
-                old = [lambda c=c, o=o: parent_fwd(c, o, args["seed"], rate, shared,
-                                                   args["offset"], True)
-                       for c, o in zip(copies, outs)]
-                numbers["in_turns_ms"] = in_turns(old, kernel, 100)
-                t = numbers["in_turns_ms"]
-                log(f"kernel {str(dtype)[6:]} shared: in turns (parent, this, this, parent) the "
-                    f"parent's kernel {t['parent'][0]:.4f}/{t['parent'][1]:.4f} ms, this kernel "
-                    f"{t['this'][0]:.4f}/{t['this'][1]:.4f} ms L2-cold, outputs bit-identical "
-                    f"({card})")
-            if shared and dtype == torch.bfloat16:
-                main = numbers
-            elif shared:
-                f32 = numbers
-    main["f32"] = f32
-    main["group"] = check_dropout_groups(seed, card, parent)
-
-    # apply_net's P3 timed as the slice's is above.
-    x = torch.randn(EVAL_P3_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
-    x_bytes = x.numel() * x.element_size()
-    args["offset"] = 0
-    err = float((kdropout.dropout_cuda(x, relu=True, **args).float()
-                 - kdropout.dropout_plain(x, relu=True, **args).float()).abs().max())
-    copies = [x.clone() for _ in range(max(2, -(-120_000_000 // x_bytes)))]
-    main["eval"] = dict(
-        shape=list(EVAL_P3_SHAPE), max_abs_err=err,
-        ms=graph_ms([lambda c=c: kdropout.dropout_cuda(c, relu=True, **args) for c in copies], 100),
-        plain_ms=graph_ms(
-            [lambda c=c: kdropout.dropout_plain(c, relu=True, **args) for c in copies], 10),
-        torch_dropout_ms=graph_ms(
-            [lambda c=c: torch.nn.functional.dropout(c, rate) for c in copies], 100),
-        bound_ms=2 * x_bytes / HBM_BYTES_PER_S * 1e3)
-    e = main["eval"]
-    log(f"kernel bf16 shared at {EVAL_P3_SHAPE}: max abs err {err}, kernel {e['ms']:.4f} ms "
-        f"L2-cold, plain {e['plain_ms']:.4f} ms, F.dropout {e['torch_dropout_ms']:.4f} ms, "
-        f"bound {e['bound_ms']:.4f} ms ({card})")
-    if err != 0.0:
-        raise AssertionError(f"kernel != plain at {EVAL_P3_SHAPE}: {err}")
-    return main
+    xs = random_levels(gen, level_shapes(canvas, batch), dtype)
+    return xs, seed * 7919 + 17, 0.2, shared, level_offsets(xs, shared), True
 
 
-def check_dropout_groups(seed: int, card: str, parent=None) -> dict:
-    """Phase 2, part 2: the grouped forward (one launch over the five FPN
-    levels of a (run, tower, layer), relu on) at both canvases' P3-P7 (the
-    slice's 736x1280 and apply_net's 768x1344, batch 2), bfloat16 and
-    float32, per-sample and batch-shared, against dropout_levels_plain bit
-    for bit (and, with `parent`, against the parent's kernel launched once
-    a level); then its time at the slice's canvas, bf16 and f32
-    batch-shared (the main path's and the int8 head's), device time of a
-    CUDA graph's replay on groups that together exceed the L2 twice over,
-    beside the group's byte bound, the plain version, this kernel launched
-    once a level, F.dropout a level, and the parent's five launches in
-    turns. Returns the bf16 numbers, the f32 ones under "f32"."""
-    rate = 0.2
-    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
-    parent_fwd = parent_dropout(parent)[0] if parent else None
-    draw = seed * 7919 + 17
-    for canvas in (CANVAS, EVAL_CANVAS):
-        shapes = level_shapes(canvas, BATCH)
-        for dtype in (torch.bfloat16, torch.float32):
-            bits = torch.int32 if dtype == torch.float32 else torch.int16
-            for shared in (True, False):
-                xs = random_levels(gen, shapes, dtype)
-                args = (draw, rate, shared, level_offsets(xs, shared), True)
-                before = kdropout.LAUNCHES
-                k = kdropout.dropout_levels_cuda(xs, *args)
-                if kdropout.LAUNCHES != before + 1:
-                    raise AssertionError("a group took more than one launch")
-                p = kdropout.dropout_levels_plain(xs, *args)
-                if not all(torch.equal(a.view(bits), b.view(bits)) for a, b in zip(k, p)):
-                    raise AssertionError(f"grouped kernel != plain on {canvas} ({dtype}, "
-                                         f"shared={shared})")
-                if parent_fwd is not None:
-                    for x, out, offset in zip(xs, k, args[3]):
-                        old = torch.empty_like(x)
-                        parent_fwd(x, old, draw, rate, shared, offset, True)
-                        if not torch.equal(old.view(bits), out.view(bits)):
-                            raise AssertionError(f"grouped kernel != the parent's at "
-                                                 f"{tuple(x.shape)} ({dtype}, shared={shared})")
-        elems = sum(math.prod(sh) for sh in shapes)
-        log(f"kernel grouped on the {canvas[0]}x{canvas[1]} canvas: P3-P7 "
-            f"{[sh[2:] for sh in shapes]} in one launch, bf16 and f32, per-sample and "
-            f"batch-shared, bit-identical to the plain version"
-            + (" and to the parent's launch per level" if parent_fwd else "")
-            + f"; {elems} elements ({card})")
-    records = {}
-    shapes = level_shapes(CANVAS, BATCH)
-    for dtype in (torch.bfloat16, torch.float32):
-        group_bytes = sum(math.prod(sh) for sh in shapes) * torch.finfo(dtype).bits // 8
-        groups = [random_levels(gen, shapes, dtype)
-                  for _ in range(max(2, -(-120_000_000 // group_bytes)))]
-        offsets = level_offsets(groups[0], True)
-        args = (draw, rate, True, offsets, True)
-        grouped = [lambda g=g: kdropout.dropout_levels_cuda(g, *args) for g in groups]
-        five = [lambda g=g: [kdropout.dropout_cuda(x, draw, rate, True, o, True)
-                             for x, o in zip(g, offsets)] for g in groups]
-        rec = dict(
-            shapes=[list(sh) for sh in shapes], dtype=str(dtype)[6:],
-            ms=graph_ms(grouped, 100), five_launches_ms=graph_ms(five, 100),
-            plain_ms=graph_ms([lambda g=g: kdropout.dropout_levels_plain(g, *args)
-                               for g in groups], 5),
-            torch_dropout_ms=graph_ms([lambda g=g: [torch.nn.functional.dropout(x, rate)
-                                                    for x in g] for g in groups], 100),
-            bound_ms=2 * group_bytes / HBM_BYTES_PER_S * 1e3, in_turns_ms=None)
-        if parent_fwd is not None:
-            outs = [[torch.empty_like(x) for x in g] for g in groups]
-            old = [lambda g=g, o=o: [parent_fwd(x, y, draw, rate, True, off, True)
-                                     for x, y, off in zip(g, o, offsets)]
-                   for g, o in zip(groups, outs)]
-            rec["in_turns_ms"] = in_turns(old, grouped, 100)
-        t = rec["in_turns_ms"]
-        log(f"kernel grouped {rec['dtype']} shared at {CANVAS[0]}x{CANVAS[1]} P3-P7: one launch "
-            f"{rec['ms']:.4f} ms L2-cold against a bound of {rec['bound_ms']:.4f} ms "
-            f"({100 * rec['bound_ms'] / rec['ms']:.1f}%), this kernel once a level "
-            f"{rec['five_launches_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, F.dropout a level "
-            f"{rec['torch_dropout_ms']:.4f} ms"
-            + (f"; in turns (parent, this, this, parent) the parent's five launches "
-               f"{t['parent'][0]:.4f}/{t['parent'][1]:.4f} ms, this group "
-               f"{t['this'][0]:.4f}/{t['this'][1]:.4f} ms" if t else "") + f" ({card})")
-        records[rec["dtype"]] = rec
-        del groups
-        torch.cuda.empty_cache()
-    main = records["bfloat16"]
-    main["f32"] = records["float32"]
-    return main
+def dropout_backward_group(seed: int, canvas, batch: int, dtype, shared: bool):
+    """The arguments of one grouped K1 backward: random channels-last
+    cotangents and the forward's outputs."""
+    xs, *args = dropout_group(seed, canvas, batch, dtype, shared)
+    outs = kdropout.dropout_levels_cuda(xs, *args)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return (random_levels(gen, [x.shape for x in xs], dtype), outs, *args)
 
 
-def normal_bound_ms(n: int, read_bytes: int = 0) -> dict:
-    """The normal function's bounds for n float32 normals: bytes written
-    (and `read_bytes` read: a row index), instruction issue and MUFU work
-    (NORMAL_OPS), in ms."""
-    blocks = -(-n // 4)
-    instructions = blocks * (NORMAL_OPS["block"][0] + 2 * NORMAL_OPS["pair"][0])
-    mufu = blocks * 2 * NORMAL_OPS["pair"][1]
-    return {"bytes": (4 * n + read_bytes) / HBM_BYTES_PER_S * 1e3,
-            "issue": instructions / INSTRUCTIONS_PER_S * 1e3,
-            "mufu": mufu / MUFU_PER_S * 1e3}
+def group_bytes(canvas, batch: int, dtype) -> int:
+    return sum(math.prod(sh) for sh in level_shapes(canvas, batch)) * torch.finfo(dtype).bits // 8
 
 
-def box_muller64(q: torch.Tensor, seed: int) -> torch.Tensor:
-    """(..., 4) float64 Box-Muller normals of Philox blocks q (int64) under
-    `seed`: the normal kernel's function without its float32 arithmetic."""
-    w = torch.stack(kdropout.philox4x32_10(q & 0xFFFFFFFF, q >> 32, seed), dim=-1)
-    u = ((w >> 8) + 1).double() / 2 ** 24
-    r = torch.sqrt(-2 * torch.log(u[..., 0::2]))
-    t = 2 * math.pi * u[..., 1::2]
-    return torch.stack([r * torch.cos(t), r * torch.sin(t)], dim=-1).flatten(-2)
+def focal_inputs(seed: int, shape):
+    """Logits, log-variances and one-hot-like targets on the card, like the
+    training path's (B, R, K) planes, and the draw's seed and S = 10."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda") * 3.0 - 4.0
+    s = torch.randn(shape, generator=gen, device="cuda") * 2.0 - 3.0
+    t = (torch.rand(shape, generator=gen, device="cuda") < 0.01).float()
+    return x, s, t, seed, 10
 
 
-def float64_error(z: torch.Tensor, want: torch.Tensor):
-    """(max ulps where |want| >= normal.MAX_ULPS_ABOVE, max abs error below)."""
-    z, want = z.double().reshape(-1), want.reshape(-1)
-    big = want.abs() >= knormal.MAX_ULPS_ABOVE
-    top = torch.frexp(torch.maximum(z.abs(), want.abs()))[1]
-    ulps = (z - want).abs() / torch.ldexp(torch.ones_like(want), top - 24)
-    return float(ulps[big].max()), float((z - want).abs()[~big].max())
+def focal_ops(n: int):
+    """(instructions, MUFU operations) of the focal function on n elements
+    at S = 10 (FOCAL_OPS)."""
+    counts = {"element": 1, "pair": 5, "draw": 10}
+    return tuple(n * sum(FOCAL_OPS[k][i] * c for k, c in counts.items()) for i in (0, 1))
 
 
-def parent_normal(parent: str):
-    """The normal kernel of the checkout at `parent` (another commit's), as
-    ``launch(out, seed, offset)`` for a float32 `out`: pod_normal."""
-    fn = parent_library(parent, "normal.cu").pod_normal
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong,
-                   ctypes.c_ulonglong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def launch_parent(out, seed: int, offset: int) -> None:
-        err = fn(out.data_ptr(), 0, out.numel(), offset, seed & MASK64,
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"parent normal kernel launch failed with cudaError_t {err}")
-
-    return launch_parent
-
-
-def check_normal_build(card: str) -> dict:
-    """What ptxas reported of every kernel of csrc/normal.cu and
-    csrc/dropout.cu (registers; no stack, no spills) and, where cuobjdump is
-    found, the SASS of the normal kernel's main instance (float32, vector
-    stores): its loop over two Philox blocks (eight normals) a pass, per
-    normal."""
-    reports = {}
-    for source in ("normal.cu", "dropout.cu"):
-        for name, info in sorted(ptxas_instances(_build.ptxas_report(source), "").items()):
-            log(f"ptxas {source} {name}: {info.get('registers')} registers, "
-                f"{info.get('stack_bytes')} bytes stack, {info.get('spill_stores')} bytes spill "
-                f"stores, {info.get('spill_loads')} bytes spill loads ({card})")
-            if (len(info) != 4 or info["stack_bytes"] or info["spill_stores"]
-                    or info["spill_loads"]):
-                raise AssertionError(f"{source} {name}: stack or spills, or no report: {info}")
-            reports[name] = info
-    main = next((info for name, info in reports.items() if NORMAL_MAIN in name), None)
-    if main is None:
-        raise AssertionError(f"ptxas reported no {NORMAL_MAIN} (the main path's instance)")
-    sass = sass_counts(_build.library_path("normal.cu"), NORMAL_MAIN, first_loop=True)
-    if sass is None:
-        log("normal SASS: cuobjdump not found, SASS not counted")
-    else:
-        sass["per_normal"] = sass["loop_instructions"] / 8
-        sass["mufu_per_normal"] = sass["loop_mufu"] / 8
-        log(f"normal SASS of normal_kernel<float, vector>: {sass['instructions']} instructions, "
-            f"{sass['mufu']} MUFU; its loop over two whole Philox blocks a pass "
-            f"{sass['loop_instructions']} "
-            f"instructions, {sass['loop_mufu']} MUFU: {sass['per_normal']:g} and "
-            f"{sass['mufu_per_normal']:g} per normal ({card})")
-    return {"ptxas": main, "sass": sass}
-
-
-def check_normal_kernel(seed: int, card: str, parent=None) -> dict:
-    """Phase 2, part 3: the normal kernel against its plain version at the
-    mc_iid flagship's class bank and box chunk (its rows keyed by 4,540
-    anchors of 176,580, pod_normal_rows), float32, bit for bit on the card
-    and on the CPU (every FMA of the kernel is an exact fma in the plain
-    version); against float64 Box-Muller of the same words within
-    normal.MAX_ULPS for normals of magnitude 1e-3 or more and
-    normal.MAX_ABS_BELOW below; the law of the draws; then its time by
-    CUDA-graph replay, each launch writing a fresh buffer (L2-cold), against
-    the plain version's, torch.randn's (another stream, the same law), the
-    bound and, with `parent`, the parent's kernel at the class bank in
-    turns. Returns the class bank's numbers, with the box chunk's under
-    "box_chunk" and ptxas's and the SASS's under "build"."""
-    build = check_normal_build(card)
-    like = torch.zeros(1, device="cuda")
+def normal_inputs(seed: int, shape, keyed: bool):
+    """The arguments of one normal draw on the card, float32: with `keyed`,
+    a box chunk's rows keyed by as many random anchors of ANCHORS."""
     gen = torch.Generator().manual_seed(seed)
-    anchors = torch.randperm(NORMAL_ROWS, generator=gen)[:NORMAL_SHAPES["box chunk"][1]]
-    parent_fn = parent_normal(parent) if parent else None
-    records = {}
-    for name, shape in NORMAL_SHAPES.items():
-        n = math.prod(shape)
-        draw, offset = seed * 7919 + 23, 4 * 12345
-        args = (shape, draw, offset)
-        rows = {} if name == "class bank" else dict(index=anchors.cuda(), rows=NORMAL_ROWS)
-        k = knormal.normal_cuda(*args, like, **rows)
-        p = knormal.normal_plain(*args, torch.float32, "cuda", **rows)
-        torch.cuda.synchronize()
-        if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
-            raise AssertionError(f"normal kernel != plain on the card at {shape}: "
-                                 f"{int((k != p).sum())} of {n} differ")
-        err = float((k - p).abs().max())
-        c = knormal.normal_plain(*args, **({} if not rows else dict(index=anchors,
-                                                                    rows=NORMAL_ROWS))).cuda()
-        cpu_differ = int((k != c).sum())
-        if cpu_differ:
-            raise AssertionError(f"normal kernel against the CPU's plain version at {shape}: "
-                                 f"{cpu_differ} of {n} differ")
-        if rows:
-            s = torch.arange(shape[0], device="cuda")[:, None]
-            q = offset // 4 + s * NORMAL_ROWS + rows["index"][None]
-        else:
-            q = offset // 4 + torch.arange(n // 4, device="cuda")
-        ulps, small = float64_error(k, box_muller64(q, draw))
-        if not (ulps <= knormal.MAX_ULPS and small <= knormal.MAX_ABS_BELOW):
-            raise AssertionError(f"normal kernel against float64 at {shape}: {ulps} ulps at "
-                                 f"magnitudes >= {knormal.MAX_ULPS_ABOVE}, {small} below")
-        z = k.double()
-        mean, var = float(z.mean()), float(z.var())
-        tail = float((z.abs() > 3).double().mean())
-        if (abs(mean) > 6 / math.sqrt(n) or abs(var - 1) > 6 * math.sqrt(2 / n)
-                or abs(tail - 0.0026998) > 6 * math.sqrt(0.0027 / n)):
-            raise AssertionError(f"normal kernel's law at {shape}: mean {mean}, var {var}, "
-                                 f"share beyond 3 {tail}")
-        del k, p, c, z, q
-        keep = []
-        kernel = [lambda: keep.append(knormal.normal_cuda(*args, like, **rows))]
-        ms = graph_ms(kernel, 20)
-        keep.clear()
-        turns = None
-        if parent_fn is not None and not rows:
-            old = [lambda: keep.append(torch.empty(shape, device="cuda")) or parent_fn(
-                keep[-1], draw, offset)]
-            turns = in_turns(old, kernel, 20)
-            keep.clear()
-        plain_ms = graph_ms([lambda: keep.append(knormal.normal_plain(*args, torch.float32,
-                                                                      "cuda", **rows))], 3)
-        keep.clear()
-        randn_ms = graph_ms([lambda: keep.append(torch.randn(shape, device="cuda"))], 20)
-        keep.clear()
-        torch.cuda.empty_cache()
-        bounds = normal_bound_ms(n, 8 * shape[1] if rows else 0)
-        bound_ms = max(bounds.values())
-        records[name] = dict(
-            shape=list(shape), max_abs_err=err, cpu_differ=cpu_differ, float64_max_ulps=ulps,
-            float64_max_abs_below=small, ms=ms, plain_ms=plain_ms, torch_randn_ms=randn_ms,
-            bound_ms=bound_ms, bound_by="bytes" if bounds["bytes"] >= bound_ms else "operations",
-            bytes_bound_ms=bounds["bytes"], issue_bound_ms=bounds["issue"],
-            mufu_bound_ms=bounds["mufu"], in_turns_ms=turns)
-        log(f"normal kernel {name} {shape} float32: bit-identical to the plain version on the "
-            f"card and on the CPU; against float64 within {ulps:.3f} ulps at magnitudes >= "
-            f"{knormal.MAX_ULPS_ABOVE:g}, {small:.3e} below; mean {mean:+.5f}, var {var:.5f}, "
-            f"beyond 3 {tail:.6f}; kernel {ms:.4f} ms L2-cold, plain {plain_ms:.4f} ms, "
-            f"torch.randn {randn_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes "
-            f"{bounds['bytes']:.4f}, issue {bounds['issue']:.4f}, MUFU {bounds['mufu']:.4f})"
-            + (f"; in turns (parent, this, this, parent) the parent's kernel "
-               f"{turns['parent'][0]:.4f}/{turns['parent'][1]:.4f} ms, this kernel "
-               f"{turns['this'][0]:.4f}/{turns['this'][1]:.4f} ms" if turns else "")
-            + f" ({card})")
-    main = records["class bank"]
-    main["box_chunk"] = records["box chunk"]
-    main["build"] = build
-    return main
+    index = torch.randperm(ANCHORS, generator=gen)[:shape[1]].cuda() if keyed else None
+    return shape, seed * 7919 + 23, 4 * 12345, torch.zeros(1, device="cuda"), index, \
+        ANCHORS if keyed else 0
+
+
+def normal_ops(n: int):
+    """(instructions, MUFU operations) of the normal function on n normals
+    (NORMAL_OPS)."""
+    blocks = -(-n // 4)
+    return (blocks * (NORMAL_OPS["block"][0] + 2 * NORMAL_OPS["pair"][0]),
+            blocks * 2 * NORMAL_OPS["pair"][1])
+
+
+def dropout_library(xs, seed, rate, *_):
+    """F.dropout a level at K1's rate: PyTorch's own dropout, another
+    mask law."""
+    return [torch.nn.functional.dropout(x, rate) for x in xs]
+
+
+def normal_library(shape, *_):
+    """torch.randn of normal_cuda's shape: PyTorch's own normals, another
+    stream."""
+    return torch.randn(shape, device="cuda")
+
+
+def normal_plain_like(shape, seed, offset, like, index, rows):
+    """knormal.normal_plain given normal_cuda's arguments: the dtype and
+    device of `like`."""
+    return knormal.normal_plain(shape, seed, offset, like.dtype, like.device, index, rows)
 
 
 def nms_inputs(seed: int, n: int, device="cuda"):
-    """(boxes, scores, classes, valid) of n pre-NMS candidates on the
-    736x1280 canvas: boxes jittered around n / 15 objects (sides 16-400 px),
-    uniform scores, valid above 0.05, NUM_CLASSES classes."""
+    """(boxes, scores, classes, valid, threshold 0.5, max_out 100) of n
+    pre-NMS candidates on the 736x1280 canvas: boxes jittered around n / 15
+    objects (sides 16-400 px), uniform scores, valid above 0.05, NUM_CLASSES
+    classes."""
     rs = np.random.RandomState(seed)
     objects = max(n // 15, 1)
     side = np.exp(rs.uniform(np.log(16.0), np.log(400.0), (objects, 2)))
@@ -923,73 +551,14 @@ def nms_inputs(seed: int, n: int, device="cuda"):
     boxes = np.concatenate([c - s / 2, c + s / 2], axis=1).astype(np.float32)
     scores = rs.rand(n).astype(np.float32)
     classes = rs.randint(0, NUM_CLASSES, n).astype(np.int64)
-    return [torch.from_numpy(a).to(device) for a in (boxes, scores, classes, scores > 0.05)]
+    return (*[torch.from_numpy(a).to(device) for a in (boxes, scores, classes, scores > 0.05)],
+            0.5, 100)
 
 
-def check_nms_kernel(seed: int, card: str) -> dict:
-    """Phase 2, part 4: ptxas's report of csrc/nms.cu (no spills); the NMS
-    kernel against the plain loop at the pre-NMS paths' shape (4,540
-    candidates, 7 classes, max_out 100, threshold 0.5) over three seeds and
-    at the merge's 1,000, bit for bit on the card and on the CPU; then its
-    time alone by CUDA-graph replay over 400 input sets (52 MB, past the
-    50 MB L2: L2-cold), its latency floor (pod_nms_chain: the same 100
-    steps' reductions and barrier with no candidates), the plain loop's
-    device time (replayed) and host-driven wall time, and the kernel's wall
-    time through ops/nms.py::batched_nms (launch and synchronise)."""
-    reports = {}
-    for name, info in sorted(ptxas_instances(_build.ptxas_report("nms.cu"), "").items()):
-        log(f"ptxas nms.cu {name}: {info.get('registers')} registers, "
-            f"{info.get('stack_bytes')} bytes stack, {info.get('spill_stores')} bytes spill "
-            f"stores, {info.get('spill_loads')} bytes spill loads ({card})")
-        if len(info) != 4 or info["spill_stores"] or info["spill_loads"]:
-            raise AssertionError(f"nms.cu {name}: spills, or no report: {info}")
-        reports[name] = info
-    records = {}
-    for n, seeds in ((4540, (seed, seed + 1, seed + 2)), (1000, (seed,))):
-        for s in seeds:
-            args = nms_inputs(s, n)
-            idx, ok = knms.batched_nms_op(*args, 0.5, 100)
-            plain = knms.batched_nms_plain(*args, 0.5, 100)
-            cpu = knms.batched_nms_plain(*[a.cpu() for a in args], 0.5, 100)
-            torch.cuda.synchronize()
-            if not (torch.equal(idx, plain[0]) and torch.equal(ok, plain[1])
-                    and torch.equal(idx.cpu(), cpu[0]) and torch.equal(ok.cpu(), cpu[1])):
-                raise AssertionError(f"nms kernel != plain at N = {n}, seed {s}")
-        sets = [nms_inputs(seed + 100 + i, n) for i in range(400 if n == 4540 else 1)]
-        keep = []
-        ms = graph_ms([lambda a=a: keep.append(knms.batched_nms_op(*a, 0.5, 100)) for a in sets],
-                      len(sets) if n == 4540 else 50)
-        keep.clear()
-        chain_ms = graph_ms([lambda: keep.append(knms.chain_cuda(100, n))], 50)
-        keep.clear()
-        args = sets[0]
-        plain_ms = graph_ms([lambda: keep.append(knms.batched_nms_plain(*args, 0.5, 100))], 3)
-        keep.clear()
-        walls = {}
-        for who, fn in (("kernel", lambda: pnms.batched_nms(*args, 0.5, 100)),
-                        ("plain", lambda: knms.batched_nms_plain(*args, 0.5, 100))):
-            fn()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-            walls[who] = (time.perf_counter() - t) / 20 * 1e3
-        del sets
-        torch.cuda.empty_cache()
-        records[n] = dict(n=n, ms=ms, chain_ms=chain_ms, plain_ms=plain_ms,
-                          wall_ms=walls["kernel"], plain_wall_ms=walls["plain"],
-                          kept=int(ok.sum()))
-        log(f"nms kernel N = {n}, max_out 100, threshold 0.5: bit-identical to the plain loop on "
-            f"the card and on the CPU ({len(seeds)} seeds, {int(ok.sum())} kept); kernel "
-            f"{ms:.4f} ms" + (" L2-cold" if n == 4540 else "") + f", latency floor (100 steps "
-            f"of reductions and barrier, no candidates) {chain_ms:.4f} ms, plain loop "
-            f"{plain_ms:.4f} ms of device time replayed, {walls['plain']:.3f} ms wall from the "
-            f"host; the kernel {walls['kernel']:.3f} ms wall through ops/nms.py ({card})")
-    main = records[4540]
-    main["merge"] = records[1000]
-    main["ptxas"] = reports
-    return main
+def nms_floor_ms(n: int) -> float:
+    """The NMS kernel's latency floor: pod_nms_chain, the same 100 steps'
+    block argmax and barrier with no candidates."""
+    return graph_ms([lambda: knms.chain_cuda(100, n)], KERNEL_ITERS)
 
 
 # K3's shapes: X101-32x8d's training step at batch 16 on 736x1280, bf16
@@ -1001,127 +570,229 @@ FROZEN_BN_CASES = (
 )
 
 
-def frozen_bn_norm(c: int, seed: int):
+def frozen_bn_stats(c: int, seed: int):
     """A FrozenBN's buffers on the card, float32 as in training, with some
-    scales negative."""
+    scales negative, as the operators take them."""
     gen = torch.Generator().manual_seed(seed)
     norm = FrozenBatchNorm2d(c)
     norm.weight.copy_(torch.randn(c, generator=gen))
     norm.bias.copy_(torch.randn(c, generator=gen) * 0.5)
     norm.running_mean.copy_(torch.randn(c, generator=gen) * 0.5)
     norm.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
-    return norm.cuda()
+    return kfb.stats(norm.cuda())
 
 
-def frozen_bn_library(z, norm, residual=None, shortcut=None, shortcut_norm=None):
-    """The backbone's chain before K3, as separate PyTorch operations in z's
-    dtype: FrozenBN's multiply and add with the pair rebuilt each call, the
-    shortcut's FrozenBN the same way, the residual add, F.relu."""
-    def frozen_bn(x, n):
-        mul = n.weight * torch.rsqrt(n.running_var + n.eps)
-        add = n.bias - n.running_mean * mul
-        return x * mul.to(x.dtype).view(1, -1, 1, 1) + add.to(x.dtype).view(1, -1, 1, 1)
-
-    y = frozen_bn(z, norm)
-    if residual is not None:
-        y = y + residual
-    elif shortcut is not None:
-        y = y + frozen_bn(shortcut, shortcut_norm)
-    return torch.nn.functional.relu(y)
-
-
-def check_frozen_bn_kernel(seed: int, card: str) -> dict:
-    """Phase 2, part 5: ptxas's report of csrc/frozen_bn.cu (no stack, no
-    spills); K3, the FrozenBN epilogue, at X101-32x8d's training shapes
-    (res2's conv1, res4's conv3 with its identity residual, res3's first
-    conv3 with its projection shortcut), forward and backward bit for bit
-    against its plain version on the card; the kernel's device time (CUDA
-    events over 20 back-to-back launches, every tensor past the 50 MB L2),
-    its byte bound (2 B an element read or written once at 3.35 TB/s), the
-    plain version's time and ``library_ms``, the chain of PyTorch
-    operations the backbone ran before K3 (backward: autograd through
-    it)."""
-    reports = {}
-    for name, info in sorted(ptxas_instances(_build.ptxas_report("frozen_bn.cu"),
-                                             "pod_frozen_bn").items()):
-        if len(info) != 4 or info["stack_bytes"] or info["spill_stores"] or info["spill_loads"]:
-            raise AssertionError(f"frozen_bn.cu {name}: stack or spills, or no report: {info}")
-        reports[name] = info
-    if len(reports) != 12:
-        raise AssertionError(f"frozen_bn.cu: {len(reports)} kernel instances, expected 12 (forward "
-                             f"and backward, 3 dtype pairs, 2 layouts)")
-    log(f"ptxas frozen_bn.cu: {len(reports)} instances, "
-        f"{min(r['registers'] for r in reports.values())}-"
-        f"{max(r['registers'] for r in reports.values())} registers, no stack, no spills ({card})")
+def frozen_bn_inputs(seed: int, shape, side: str):
+    """The arguments of one K3 forward: (z, n, residual, shortcut, ns)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
-    def tensor(shape):
+    def tensor():
         t = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
         return t.contiguous(memory_format=torch.channels_last)
 
-    records = {}
-    for i, (name, shape, side) in enumerate(FROZEN_BN_CASES):
-        numel = math.prod(shape)
-        norm = frozen_bn_norm(shape[1], seed + 2 * i)
-        z, n = tensor(shape), kfb.stats(norm)
-        kw = {}
-        if side == "residual":
-            kw["residual"] = tensor(shape)
-        elif side == "projection":
-            kw["shortcut"], kw["shortcut_norm"] = tensor(shape), frozen_bn_norm(shape[1],
-                                                                                 seed + 2 * i + 1)
-        r, zs = kw.get("residual"), kw.get("shortcut")
-        ns = kfb.stats(kw["shortcut_norm"]) if zs is not None else None
-        g = tensor(shape)
-        side_grad = side != "none"
-        launches = kfb.LAUNCHES
-        y = kfb.frozen_bn_act_cuda(z, n, r, zs, ns)
-        grads = kfb.frozen_bn_act_backward_cuda(g, y, n, ns, True, side_grad)
-        torch.cuda.synchronize()
-        if kfb.LAUNCHES != launches + 2:
-            raise AssertionError(f"frozen_bn {name}: {kfb.LAUNCHES - launches} launches, not 2")
-        if not torch.equal(y, kfb.frozen_bn_act_plain(z, n, r, zs, ns)):
-            raise AssertionError(f"frozen_bn kernel != plain at {name}, forward")
-        plain_grads = kfb.frozen_bn_act_backward_plain(g, y, n, ns, True, side_grad)
-        for a, b in zip(grads, plain_grads):
-            if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
-                raise AssertionError(f"frozen_bn kernel != plain at {name}, backward")
-        del grads, plain_grads
-        rec = dict(shape=list(shape), side=side, dtype="bfloat16",
-                   ms=event_ms(lambda: kfb.frozen_bn_act_cuda(z, n, r, zs, ns), 20),
-                   bound_ms=2 * numel * (2 + side_grad) / HBM_BYTES_PER_S * 1e3,
-                   plain_ms=event_ms(lambda: kfb.frozen_bn_act_plain(z, n, r, zs, ns), 3),
-                   library_ms=event_ms(lambda: frozen_bn_library(z, norm, **kw), 20),
-                   backward_ms=event_ms(
-                       lambda: kfb.frozen_bn_act_backward_cuda(g, y, n, ns, True, side_grad), 20),
-                   backward_bound_ms=2 * numel * (3 + side_grad) / HBM_BYTES_PER_S * 1e3,
-                   backward_plain_ms=event_ms(
-                       lambda: kfb.frozen_bn_act_backward_plain(g, y, n, ns, True, side_grad), 3))
-        inputs, lkw = [z.detach().requires_grad_(True)], dict(kw)
-        for key in ("residual", "shortcut"):
-            if key in lkw:
-                lkw[key] = lkw[key].detach().requires_grad_(True)
-                inputs.append(lkw[key])
-        chained = frozen_bn_library(inputs[0], norm, **lkw)
-        rec["backward_library_ms"] = event_ms(
-            lambda: torch.autograd.grad(chained, inputs, g, retain_graph=True), 20)
-        del chained, inputs, lkw, kw, z, r, zs, g, y
+    z, n = tensor(), frozen_bn_stats(shape[1], seed)
+    if side == "residual":
+        return z, n, tensor(), None, None
+    if side == "projection":
+        return z, n, None, tensor(), frozen_bn_stats(shape[1], seed + 1)
+    return z, n, None, None, None
+
+
+def frozen_bn_backward_inputs(seed: int, shape, side: str):
+    """The arguments of one K3 backward: (g, y, n, ns, z_grad, side_grad),
+    y the forward's output."""
+    z, n, residual, shortcut, ns = frozen_bn_inputs(seed, shape, side)
+    y = kfb.frozen_bn_act_cuda(z, n, residual, shortcut, ns)
+    g = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(seed + 2),
+                    device="cuda").to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return g, y, n, ns, True, side != "none"
+
+
+def frozen_bn_library(z, n, residual=None, shortcut=None, ns=None):
+    """The backbone's chain before K3, as separate PyTorch operations in z's
+    dtype: FrozenBN's multiply and add with the pair rebuilt each call, the
+    shortcut's FrozenBN the same way, the residual add, F.relu."""
+    def frozen_bn(x, stats):
+        weight, bias, mean, var, eps = stats
+        mul = weight * torch.rsqrt(var + eps)
+        add = bias - mean * mul
+        return x * mul.to(x.dtype).view(1, -1, 1, 1) + add.to(x.dtype).view(1, -1, 1, 1)
+
+    y = frozen_bn(z, n)
+    if residual is not None:
+        y = y + residual
+    elif shortcut is not None:
+        y = y + frozen_bn(shortcut, ns)
+    return torch.nn.functional.relu(y)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCase:
+    """One row of the kernels phase: a kernel of csrc/ at one shape of the
+    main paths. `inputs(seed)` builds the arguments of one call on the card;
+    `kernel`, `plain` and `library` (PyTorch's own call, where there is
+    one) each take them. `tol` is how far each output of the kernel may be
+    from the plain version's, over the largest magnitude of the latter: 0
+    is bit for bit. `bytes` is what one call reads and writes once; `ops`
+    the (instructions, MUFU operations) its function needs at least;
+    `floor`, where given, measures a latency floor in ms."""
+
+    name: str
+    case: str
+    shape: tuple
+    dtype: str
+    inputs: Callable
+    kernel: Callable
+    plain: Callable
+    bytes: int
+    ops: tuple = (0, 0)
+    floor: Optional[Callable] = None
+    library: Optional[Callable] = None
+    tol: float = 0.0
+
+
+# Each kernel's source and what it replaces in the JAX package.
+KERNEL_SOURCES = {
+    "hardware_dropout": ("pod_compare_tpu_torch/csrc/dropout.cu",
+                         "pod_compare_tpu/ops/pallas/dropout.py:28"),
+    "stochastic_focal_elem": ("pod_compare_tpu_torch/csrc/focal.cu",
+                              "pod_compare_tpu/ops/pallas/focal.py:92"),
+    "normal": ("pod_compare_tpu_torch/csrc/normal.cu",
+               "none: jax.random.normal (XLA threefry) in pod_compare_tpu/inference/core.py, "
+               "outside any Pallas kernel"),
+    "batched_nms": ("pod_compare_tpu_torch/csrc/nms.cu",
+                    "none: the lax.scan of pod_compare_tpu/ops/nms.py, outside any Pallas kernel"),
+    "frozen_bn_act": ("pod_compare_tpu_torch/csrc/frozen_bn.cu",
+                      "none: FrozenBatchNorm's multiply-add in pod_compare_tpu/models/layers.py, "
+                      "which XLA fuses, outside any Pallas kernel"),
+}
+_K1_INFER, _K1_TRAIN = level_shapes(CANVAS, BATCH), level_shapes(CANVAS, TRAIN_BATCH)
+_FOCAL = (TRAIN_BATCH, ANCHORS, NUM_CLASSES)
+_CLASS_BANK, _BOX_CHUNK = (10, ANCHORS, NUM_CLASSES), (100, 4540, 4)
+# The rows PERF.md's kernel table reports, at the main paths' shapes.
+KERNEL_CASES = (
+    KernelCase("hardware_dropout", "forward, grouped over P3-P7, bf16 batch-shared, 736x1280 "
+               "(the MC bank)", _K1_INFER, "bfloat16",
+               lambda s: dropout_group(s, CANVAS, BATCH, torch.bfloat16, True),
+               kdropout.dropout_levels_cuda, kdropout.dropout_levels_plain,
+               2 * group_bytes(CANVAS, BATCH, torch.bfloat16), library=dropout_library),
+    KernelCase("hardware_dropout", "forward, grouped over P3-P7, float32 batch-shared, fused "
+               "ReLU, 736x1280 (the int8 head's MC bank)", _K1_INFER, "float32",
+               lambda s: dropout_group(s, CANVAS, BATCH, torch.float32, True),
+               kdropout.dropout_levels_cuda, kdropout.dropout_levels_plain,
+               2 * group_bytes(CANVAS, BATCH, torch.float32), library=dropout_library),
+    KernelCase("hardware_dropout", "backward, grouped over a train step's P3-P7, bf16 "
+               "per-sample, batch 4", _K1_TRAIN, "bfloat16",
+               lambda s: dropout_backward_group(s, CANVAS, TRAIN_BATCH, torch.bfloat16, False),
+               kdropout.dropout_levels_backward_cuda, kdropout.dropout_levels_backward_plain,
+               3 * group_bytes(CANVAS, TRAIN_BATCH, torch.bfloat16)),
+    KernelCase("stochastic_focal_elem", "forward and gradients, S = 10 (training's)", _FOCAL,
+               "float32", lambda s: focal_inputs(s, _FOCAL), kfocal.focal_cuda,
+               kfocal.focal_plain, 6 * 4 * math.prod(_FOCAL), focal_ops(math.prod(_FOCAL)),
+               tol=1e-5),
+    KernelCase("normal", "class bank (the mc_iid flagship's, an image)", _CLASS_BANK, "float32",
+               lambda s: normal_inputs(s, _CLASS_BANK, False), knormal.normal_cuda,
+               normal_plain_like, 4 * math.prod(_CLASS_BANK), normal_ops(math.prod(_CLASS_BANK)),
+               library=normal_library),
+    KernelCase("normal", "box chunk, rows keyed by 4540 anchors", _BOX_CHUNK, "float32",
+               lambda s: normal_inputs(s, _BOX_CHUNK, True), knormal.normal_cuda,
+               normal_plain_like, 4 * math.prod(_BOX_CHUNK) + 8 * _BOX_CHUNK[1],
+               normal_ops(math.prod(_BOX_CHUNK)), library=normal_library),
+    *(KernelCase("batched_nms", f"{n} candidates, {NUM_CLASSES} classes, max_out 100, "
+                 f"threshold 0.5 ({what})", (n, 4), "float32",
+                 lambda s, n=n: nms_inputs(s, n), knms.batched_nms_cuda, knms.batched_nms_plain,
+                 29 * n, floor=lambda n=n: nms_floor_ms(n))
+      for n, what in ((4540, "the pre-NMS paths'"), (1000, "the post-NMS merge's"))),
+    *(row for name, shape, side in FROZEN_BN_CASES for row in (
+        KernelCase("frozen_bn_act", f"forward at {name}, side input {side}, channels-last",
+                   shape, "bfloat16", lambda s, shape=shape, side=side: frozen_bn_inputs(
+                       s, shape, side), kfb.frozen_bn_act_cuda, kfb.frozen_bn_act_plain,
+                   2 * math.prod(shape) * (2 + (side != "none")), library=frozen_bn_library),
+        # Autograd's backward of frozen_bn_library is threshold_backward and a
+        # multiply by each FrozenBN's scale: the plain version's operations.
+        KernelCase("frozen_bn_act", f"backward at {name}, side input {side}, channels-last",
+                   shape, "bfloat16", lambda s, shape=shape, side=side:
+                   frozen_bn_backward_inputs(s, shape, side), kfb.frozen_bn_act_backward_cuda,
+                   kfb.frozen_bn_act_backward_plain,
+                   2 * math.prod(shape) * (3 + (side != "none"))))),
+)
+
+
+def outputs_agree(case: KernelCase, args) -> bool:
+    """The kernel's outputs on `args` against the plain version's, within
+    the row's `tol`: bit for bit where it is 0."""
+    def leaves(out):
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    got, want = leaves(case.kernel(*args)), leaves(case.plain(*args))
+    if len(got) != len(want):
+        return False
+    for k, p in zip(got, want):
+        if k is None or p is None:
+            if k is not p:
+                return False
+        elif k.shape != p.shape or k.dtype != p.dtype:
+            return False
+        elif case.tol:
+            err = float((k.double() - p.double()).abs().max())
+            if not (bool(torch.isfinite(k).all()) and err <= case.tol * float(p.abs().max())):
+                return False
+        elif not torch.equal(*(t.contiguous().reshape(-1).view(torch.uint8) for t in (k, p))):
+            return False
+    return True
+
+
+def run_kernels(seed: int, card: str) -> list:
+    """Phase 2: every row of KERNEL_CASES checked on one input set against
+    its plain version (outputs_agree), then timed alike. Each call is captured
+    in a CUDA graph (graph_ms) over copies of its inputs that, with the
+    outputs the last copies' calls wrote, exceed the 50 MB L2 twice over, so
+    every call reads and writes memory that is not in L2; the plain version
+    the same way with fewer calls. The bound is the largest of the bytes
+    over HBM_BYTES_PER_S, the instructions over INSTRUCTIONS_PER_S, the MUFU
+    operations over MUFU_PER_S and the measured floor. Returns one record a
+    row with the keys of the kernels line; main() fills in `launches`."""
+    records = []
+    for case in KERNEL_CASES:
+        copies = max(2, -(-L2_COLD_BYTES // case.bytes))
+        sets = [case.inputs(seed + c) for c in range(copies)]
+        written = collections.deque(maxlen=copies)
+        if not outputs_agree(case, sets[0]):
+            raise AssertionError(f"kernel {case.name}, {case.case}: its outputs differ from the "
+                                 f"plain version's" + (f" by more than {case.tol:g} of scale"
+                                                       if case.tol else " (bit for bit)"))
+
+        def timed(fn, iters):
+            ms = graph_ms([lambda a=a: written.append(fn(*a)) for a in sets], iters)
+            written.clear()
+            return ms
+
+        ms = timed(case.kernel, max(KERNEL_ITERS, copies))
+        plain_ms = timed(case.plain, PLAIN_ITERS)
+        library_ms = timed(case.library, KERNEL_ITERS) if case.library else None
+        bounds = {"bytes": case.bytes / HBM_BYTES_PER_S * 1e3,
+                  "instruction issue": case.ops[0] / INSTRUCTIONS_PER_S * 1e3,
+                  "MUFU": case.ops[1] / MUFU_PER_S * 1e3}
+        if case.floor is not None:
+            bounds["latency floor (measured)"] = case.floor()
+        bound_by = max(bounds, key=bounds.get)
+        source, replaces = KERNEL_SOURCES[case.name]
+        records.append(dict(
+            name=case.name, case=case.case, route="cuda", source=source, replaces=replaces,
+            shape=case.shape, dtype=case.dtype, launches=None, ms=ms, plain_ms=plain_ms,
+            bound_ms=bounds[bound_by], bound_by=bound_by, library_ms=library_ms))
+        agree = f"within {case.tol:g} of scale" if case.tol else "bit for bit"
+        log(f"kernel {case.name}, {case.case}: {agree} with the plain version; {ms:.4f} ms "
+            f"L2-cold, bound {bounds[bound_by]:.4f}"
+            f" ms by {bound_by} ({100 * bounds[bound_by] / ms:.1f}%), plain {plain_ms:.4f} ms"
+            + ("" if library_ms is None else f", PyTorch's own {library_ms:.4f} ms")
+            + f"; {copies} input sets ({card})")
+        del sets
         torch.cuda.empty_cache()
-        log(f"frozen_bn kernel {name} {shape} bf16 channels-last, {side}: bit-identical to the "
-            f"plain version forward and backward; forward {rec['ms']:.4f} ms against a bound of "
-            f"{rec['bound_ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f}%), plain "
-            f"{rec['plain_ms']:.4f} ms, the former chain {rec['library_ms']:.4f} ms; backward "
-            f"{rec['backward_ms']:.4f} ms against {rec['backward_bound_ms']:.4f} ms "
-            f"({100 * rec['backward_bound_ms'] / rec['backward_ms']:.1f}%), plain "
-            f"{rec['backward_plain_ms']:.4f} ms, the former chain "
-            f"{rec['backward_library_ms']:.4f} ms ({card})")
-        records[name] = rec
-    main = dict(records[FROZEN_BN_CASES[0][0]])
-    main["cases"] = records
-    main["ptxas"] = reports
-    return main
+    return records
 
 
+# ------------------------------------------------------------ phases
 def check_detections(dets, output_sizes, min_cluster: int):
     """Finite values, symmetric PSD covariances, boxes inside the image, and
     in every image a valid detection and one fused from >= min_cluster."""
@@ -1290,362 +961,6 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def focal_inputs(seed: int, shape, copies: int = 1):
-    """Logits, log-variances and one-hot-like targets on the card, like the
-    training path's (B, R, K) planes; `copies` independent sets."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    out = []
-    for _ in range(copies):
-        x = torch.randn(shape, generator=gen, device="cuda") * 3.0 - 4.0
-        s = torch.randn(shape, generator=gen, device="cuda") * 2.0 - 3.0
-        t = (torch.rand(shape, generator=gen, device="cuda") < 0.01).float()
-        out.append((x, s, t))
-    return out
-
-
-def ptxas_instances(report: str, kernel: str):
-    """{mangled name: {registers, stack_bytes, spill_stores, spill_loads}} of
-    each instance of `kernel` in a ptxas report."""
-    found, name = {}, None
-    for line in report.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:
-            name = entry.group(1) if kernel in entry.group(1) else None
-            continue
-        used = re.search(r"Used (\d+) registers", line)
-        stack = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                          r"(\d+) bytes spill loads", line)
-        if name and used:
-            found.setdefault(name, {})["registers"] = int(used.group(1))
-        if name and stack:
-            found.setdefault(name, {}).update(zip(
-                ("stack_bytes", "spill_stores", "spill_loads"), map(int, stack.groups())))
-    return found
-
-
-def template_name(mangled: str) -> str:
-    """focal_kernel<10, 1, 1> from a mangled name holding focal_kernelILi10ELb1ELb1E."""
-    args = re.search(r"focal_kernelI(.*?)EEv", mangled).group(1)
-    return "focal_kernel<" + ", ".join(re.findall(r"L[ib](\d+)E", args + "E")) + ">"
-
-
-def cuobjdump_path():
-    """cuobjdump from PATH, beside nvcc, or in Triton's package; None if none."""
-    found = shutil.which("cuobjdump")
-    if found:
-        return found
-    beside = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    if os.path.isfile(beside):
-        return beside
-    try:
-        import triton
-    except ImportError:
-        return None
-    bundled = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
-                           "cuobjdump")
-    return bundled if os.path.isfile(bundled) else None
-
-
-def sass_counts(library: str, function: str, first_loop: bool = False):
-    """Static SASS of the first function whose name holds `function`:
-    (instructions, MUFU) of the whole function and of its loop with the most
-    MUFU (the body between a backward branch and its target), or with
-    `first_loop` of its first loop; None without cuobjdump."""
-    tool = cuobjdump_path()
-    if tool is None:
-        return None
-    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
-                          check=True).stdout
-    body = sass.split("Function : ")
-    text = next(part for part in body[1:] if function in part.splitlines()[0])
-    code = [(int(a, 16), ins) for a, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", text)]
-    mufu = lambda lo, hi: sum("MUFU" in ins for a, ins in code if lo <= a <= hi)
-    size = lambda lo, hi: sum(lo <= a <= hi for a, _ in code)
-    loops = []
-    for addr, ins in code:
-        m = re.search(r"BRA\s+0x([0-9a-f]+)", ins)
-        if m and int(m.group(1), 16) < addr:
-            loops.append((mufu(int(m.group(1), 16), addr), size(int(m.group(1), 16), addr)))
-    loop = (loops[0] if first_loop else max(loops)) if loops else (0, 0)
-    return {"instructions": len(code), "mufu": mufu(0, code[-1][0]),
-            "loop_instructions": loop[1], "loop_mufu": loop[0]}
-
-
-def parent_library(parent: str, source: str) -> ctypes.CDLL:
-    """csrc/`source` of the checkout at `parent` (another commit's), built
-    into that checkout's build/ and loaded by its own `_build`: any kernel
-    phase can time that commit's kernel in turns with this one's."""
-    path = os.path.join(os.path.abspath(parent), "pod_compare_tpu_torch", "ops", "kernels",
-                        "_build.py")
-    spec = importlib.util.spec_from_file_location("parent_build", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.load(source)
-
-
-def parent_focal(parent: str):
-    """One launch of the focal kernel of the checkout at `parent` (another
-    commit's), as ``launch(x, s, t, seed, num_samples, outs)``; at index
-    base 0 where its signature has one (after n)."""
-    fn = parent_library(parent, "focal.cu").pod_focal_forward
-    with open(os.path.join(parent, "pod_compare_tpu_torch", "csrc", "focal.cu")) as f:
-        base = (0,) if "long long index_base" in f.read() else ()
-    argtypes = list(kfocal._library().argtypes)
-    if not base:
-        del argtypes[7]
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-
-    def launch_parent(x, s, t, seed: int, num_samples: int, outs) -> None:
-        err = fn(x.data_ptr(), s.data_ptr(), t.data_ptr(), *(o.data_ptr() for o in outs),
-                 x.numel(), *base, kfocal._int32(seed), num_samples, 0.25, 2.0,
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"parent focal kernel launch failed with cudaError_t {err}")
-
-    return launch_parent
-
-
-def check_focal_kernel(seed: int, card: str, num_anchors: int, parent=None):
-    """Phase 5. Returns the numbers of S = 10, the main path's."""
-    shape = (TRAIN_BATCH, num_anchors, NUM_CLASSES)
-    n = math.prod(shape)
-    ptxas = ptxas_instances(_build.ptxas_report("focal.cu"), "focal_kernel")
-    for name, info in sorted(ptxas.items()):
-        log(f"focal ptxas {template_name(name)}: {info.get('registers')} registers, "
-            f"{info.get('stack_bytes')} bytes stack, {info.get('spill_stores')} bytes spill "
-            f"stores, {info.get('spill_loads')} bytes spill loads")
-    main_ptxas = next((info for name, info in ptxas.items() if FOCAL_MAIN in name), None)
-    if main_ptxas is None:
-        raise AssertionError(f"ptxas reported no {FOCAL_MAIN} (the main path's instance)")
-    for name, info in ptxas.items():
-        if len(info) != 4 or info["stack_bytes"] or info["spill_stores"] or info["spill_loads"]:
-            raise AssertionError(f"{template_name(name)}: stack or spills, or no report: {info}")
-    sass = sass_counts(_build.library_path("focal.cu"), FOCAL_MAIN)
-    if sass is None:
-        log("focal SASS: cuobjdump not found, SASS not counted")
-    else:
-        sass["per_element"] = sass["loop_instructions"] / 4
-        sass["mufu_per_element"] = sass["loop_mufu"] / 4
-        log(f"focal SASS of focal_kernel<10, gamma 2, 16-byte>: {sass['instructions']} "
-            f"instructions, {sass['mufu']} MUFU; its loop over four elements "
-            f"{sass['loop_instructions']} instructions, {sass['loop_mufu']} MUFU: "
-            f"{sass['per_element']:g} and {sass['mufu_per_element']:g} per element")
-    parent_fn = parent_focal(parent) if parent else None
-    main = None
-    for num_samples in (10, 3):
-        (x, s, t), = focal_inputs(seed, shape)
-        k = kfocal.focal_cuda(x, s, t, seed + 11, num_samples)
-        p = kfocal.focal_plain(x, s, t, seed + 11, num_samples)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in zip(("loss", "gx", "gs"), k, p):
-            if not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"focal kernel gave non-finite {name} (S={num_samples})")
-            scale = float(b.abs().max())
-            errs[name] = float((a - b).abs().max())
-            if not errs[name] <= 1e-5 * scale:
-                raise AssertionError(f"focal {name}: max abs {errs[name]} > 1e-5 x {scale}")
-        # Three inputs and three outputs of 19.8 MB each: every launch
-        # already streams more than the 50 MB L2; two input sets alternate.
-        sets = focal_inputs(seed + 1, shape, copies=2)
-        kernel = [lambda a=a: kfocal.focal_cuda(*a, seed, num_samples) for a in sets]
-        ms = graph_ms(kernel, 20)
-        plain_ms = graph_ms([lambda a=a: kfocal.focal_plain(*a, seed, num_samples)
-                             for a in sets], 2)
-        valid = torch.ones(shape[:2], dtype=torch.bool, device="cuda")
-
-        def threefry(a=sets[0]):
-            xs = a[0].clone().requires_grad_(True)
-            ss = a[1].clone().requires_grad_(True)
-            loss = plosses.stochastic_focal_loss(xs, ss, a[2], valid, num_samples, seed)
-            loss.backward()
-
-        threefry_ms = event_ms(threefry, 3)
-        counts = {"element": 1, "pair": -(-num_samples // 2), "draw": num_samples}
-        instructions = n * sum(FOCAL_OPS[k][0] * c for k, c in counts.items())
-        mufu = n * sum(FOCAL_OPS[k][1] * c for k, c in counts.items())
-        bytes_bound = 6 * 4 * n / HBM_BYTES_PER_S * 1e3
-        issue_bound = instructions / INSTRUCTIONS_PER_S * 1e3
-        mufu_bound = mufu / MUFU_PER_S * 1e3
-        bound_ms = max(bytes_bound, issue_bound, mufu_bound)
-        log(f"focal S={num_samples} {shape}: max abs err vs plain " + ", ".join(
-            f"{k} {v:.3e}" for k, v in errs.items()) + f"; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, threefry bank fwd+bwd {threefry_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms (bytes {bytes_bound:.4f}, instruction issue {issue_bound:.4f} "
-            f"for {instructions} instructions, MUFU {mufu_bound:.4f} for {mufu}), "
-            f"{100 * bound_ms / ms:.1f}% of the bound ({card})")
-        # A data-parallel process's rows [2:] of the batch, launched at their
-        # first element's index: the whole launch's rows, bit for bit.
-        half = TRAIN_BATCH // 2
-        part = kfocal.focal_cuda(*(a[half:].clone() for a in (x, s, t)), seed + 11, num_samples,
-                                 index_base=half * x[0].numel())
-        based = all(torch.equal(a, b[half:]) for a, b in zip(part, k))
-        if not based:
-            raise AssertionError(f"focal S={num_samples}: rows [{half}:] at their index base "
-                                 "differ from the whole launch's")
-        log(f"focal S={num_samples}: rows [{half}:] launched at index base "
-            f"{half * x[0].numel()} bit-identical to the whole launch's rows")
-        turns = parent_same = None
-        if parent_fn is not None:
-            outs = [tuple(torch.empty_like(x) for _ in range(3)) for _ in sets]
-            old = [lambda a=a, o=o: parent_fn(*a, seed, num_samples, o)
-                   for a, o in zip(sets, outs)]
-            parent_fn(x, s, t, seed + 11, num_samples, outs[0])
-            parent_err = max(float((a - b).abs().max()) for a, b in zip(outs[0], p))
-            parent_same = all(torch.equal(a, b) for a, b in zip(outs[0], k))
-            if not parent_same:
-                raise AssertionError(f"focal S={num_samples}: this kernel at index base 0 "
-                                     "differs from the parent's")
-            turns = {"parent": [], "this": []}
-            for who in ("parent", "this", "this", "parent"):
-                turns[who].append(graph_ms(old if who == "parent" else kernel, 20))
-            log(f"focal S={num_samples}: in turns (parent, this, this, parent) the parent's "
-                f"kernel {turns['parent'][0]:.4f}/{turns['parent'][1]:.4f} ms, this kernel "
-                f"{turns['this'][0]:.4f}/{turns['this'][1]:.4f} ms; the parent's max abs err vs "
-                f"plain {parent_err:.3e}, its outputs bit-identical to this kernel's at index "
-                f"base 0 ({card})")
-        if num_samples == 10:
-            main = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bytes_bound_ms=bytes_bound,
-                        issue_bound_ms=issue_bound, mufu_bound_ms=mufu_bound,
-                        threefry_ms=threefry_ms, shape=list(shape), ptxas=main_ptxas,
-                        sass=sass, in_turns_ms=turns, index_base_bit_identical=based,
-                        parent_bit_identical=parent_same)
-    return main
-
-
-def check_dropout_backward(seed: int, card: str, parent=None):
-    """Phase 6. Returns the bf16 numbers with a channels_last cotangent (the
-    layout the convolutions' backward hands the kernel on the main path),
-    and under "group" those of the grouped backward over a training step's
-    five levels (check_dropout_backward_groups)."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    rate = 0.2
-    main = None
-    for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn(TRAIN_P3_SHAPE, generator=gen, device="cuda").to(dtype)
-        x = x.contiguous(memory_format=torch.channels_last)
-        bits = torch.int32 if dtype == torch.float32 else torch.int16
-        # Per-sample masks, the flagship's, and batch-shared ones
-        # (DROPOUT_SHARED_BATCH_TRAIN): forward and backward bit for bit.
-        for shared in (True, False):
-            args = dict(seed=seed * 131 + 7, rate=rate, batch_shared=shared, offset=512,
-                        relu=True)
-            out = kdropout.dropout_cuda(x, **args)
-            if not torch.equal(out.view(bits), kdropout.dropout_plain(x, **args).view(bits)):
-                raise AssertionError(f"dropout kernel != plain at {TRAIN_P3_SHAPE} "
-                                     f"({dtype}, shared={shared})")
-            for layout in ("channels_last", "nchw"):
-                g = torch.randn(TRAIN_P3_SHAPE, generator=gen, device="cuda").to(dtype)
-                if layout == "channels_last":
-                    g = g.contiguous(memory_format=torch.channels_last)
-                k = kdropout.dropout_backward_cuda(g, out, **args)
-                p = kdropout.dropout_backward_plain(g, out, **args)
-                torch.cuda.synchronize()
-                if not torch.equal(k.contiguous().view(bits), p.contiguous().view(bits)):
-                    raise AssertionError(f"dropout backward kernel != plain ({dtype}, "
-                                         f"shared={shared}, {layout})")
-        nbytes = x.numel() * x.element_size()
-        gs = [torch.randn(TRAIN_P3_SHAPE, generator=gen, device="cuda").to(dtype)
-              .contiguous(memory_format=torch.channels_last) for _ in range(2)]
-        outs = [out, out.clone()]
-        pairs = list(zip(gs, outs))
-        ms = graph_ms([lambda gp=gp: kdropout.dropout_backward_cuda(gp[0], gp[1], **args)
-                       for gp in pairs], 50)
-        plain_ms = graph_ms([lambda gp=gp: kdropout.dropout_backward_plain(gp[0], gp[1], **args)
-                             for gp in pairs], 4)
-        bound_ms = 3 * nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"dropout {str(dtype)[6:]} {TRAIN_P3_SHAPE}: forward and backward bit-identical, "
-            f"per-sample and batch-shared, channels_last and NCHW cotangents; backward kernel {ms:.4f} ms L2-cold, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({card})")
-        if dtype == torch.bfloat16:
-            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
-    main["group"] = check_dropout_backward_groups(seed, card, parent)
-    return main
-
-
-def check_dropout_backward_groups(seed: int, card: str, parent=None) -> dict:
-    """Phase 6, part 2: the grouped forward and backward over the five
-    levels of a training step (batch 4 on 736x1280: 2.5 million chunks of
-    8 per-sample, about ten passes of the grid), bf16 and f32, per-sample
-    and batch-shared, channels_last and NCHW cotangents, against their plain
-    versions bit for bit (and the backward against the parent's launch per
-    level); the bf16 per-sample backward's time (the flagship's), one launch,
-    beside its byte bound, this kernel once a level and the parent's five
-    launches in turns."""
-    rate = 0.2
-    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
-    parent_bwd = parent_dropout(parent)[1] if parent else None
-    draw = seed * 131 + 7
-    shapes = level_shapes(CANVAS, TRAIN_BATCH)
-    for dtype in (torch.bfloat16, torch.float32):
-        bits = torch.int32 if dtype == torch.float32 else torch.int16
-        for shared in (False, True):
-            xs = random_levels(gen, shapes, dtype)
-            args = (draw, rate, shared, level_offsets(xs, shared), True)
-            outs = kdropout.dropout_levels_cuda(xs, *args)
-            if not all(torch.equal(a.view(bits), b.view(bits))
-                       for a, b in zip(outs, kdropout.dropout_levels_plain(xs, *args))):
-                raise AssertionError(f"grouped forward != plain at the training levels "
-                                     f"({dtype}, shared={shared})")
-            for layout in ("channels_last", "nchw"):
-                gs = [torch.randn(sh, generator=gen, device="cuda").to(dtype) for sh in shapes]
-                if layout == "channels_last":
-                    gs = [g.contiguous(memory_format=torch.channels_last) for g in gs]
-                before = kdropout.LAUNCHES
-                k = kdropout.dropout_levels_backward_cuda(gs, outs, *args)
-                if kdropout.LAUNCHES != before + 1:
-                    raise AssertionError("a grouped backward took more than one launch")
-                p = kdropout.dropout_levels_backward_plain(gs, outs, *args)
-                if not all(torch.equal(a.contiguous().view(bits), b.contiguous().view(bits))
-                           for a, b in zip(k, p)):
-                    raise AssertionError(f"grouped backward != plain ({dtype}, shared={shared}, "
-                                         f"{layout})")
-                if parent_bwd is not None and layout == "channels_last":
-                    for g, out, dx, offset in zip(gs, outs, k, args[3]):
-                        old = torch.empty_like(dx)
-                        parent_bwd(g, out, old, draw, rate, shared, offset, True)
-                        if not torch.equal(old.view(bits), dx.view(bits)):
-                            raise AssertionError(f"grouped backward != the parent's at "
-                                                 f"{tuple(g.shape)} ({dtype}, shared={shared})")
-    log(f"dropout grouped at the training levels {[sh[2:] for sh in shapes]}, batch "
-        f"{TRAIN_BATCH}: forward and backward one launch each, bit-identical to the plain "
-        f"versions" + (" and the backward to the parent's launch per level" if parent_bwd else "")
-        + f", bf16 and f32, per-sample and batch-shared, channels_last and NCHW ({card})")
-    dtype = torch.bfloat16
-    group_bytes = sum(math.prod(sh) for sh in shapes) * 2
-    pairs = []
-    for _ in range(2):
-        xs = random_levels(gen, shapes, dtype)
-        offsets = level_offsets(xs, False)
-        args = (draw, rate, False, offsets, True)
-        pairs.append((random_levels(gen, shapes, dtype), kdropout.dropout_levels_cuda(xs, *args)))
-    grouped = [lambda gp=gp: kdropout.dropout_levels_backward_cuda(gp[0], gp[1], *args)
-               for gp in pairs]
-    five = [lambda gp=gp: [kdropout.dropout_backward_cuda(g, o, draw, rate, False, off, True)
-                           for g, o, off in zip(gp[0], gp[1], offsets)] for gp in pairs]
-    rec = dict(shapes=[list(sh) for sh in shapes], ms=graph_ms(grouped, 50),
-               five_launches_ms=graph_ms(five, 50),
-               plain_ms=graph_ms([lambda gp=gp: kdropout.dropout_levels_backward_plain(
-                   gp[0], gp[1], *args) for gp in pairs], 2),
-               bound_ms=3 * group_bytes / HBM_BYTES_PER_S * 1e3, in_turns_ms=None)
-    if parent_bwd is not None:
-        dxs = [[torch.empty_like(g) for g in gp[0]] for gp in pairs]
-        old = [lambda gp=gp, d=d: [parent_bwd(g, o, dx, draw, rate, False, off, True)
-                                   for g, o, dx, off in zip(gp[0], gp[1], d, offsets)]
-               for gp, d in zip(pairs, dxs)]
-        rec["in_turns_ms"] = in_turns(old, grouped, 50)
-    t = rec["in_turns_ms"]
-    log(f"dropout grouped backward bf16 per-sample at the training levels: one launch "
-        f"{rec['ms']:.4f} ms L2-cold against a bound of {rec['bound_ms']:.4f} ms "
-        f"({100 * rec['bound_ms'] / rec['ms']:.1f}%), this kernel once a level "
-        f"{rec['five_launches_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms"
-        + (f"; in turns (parent, this, this, parent) the parent's five launches "
-           f"{t['parent'][0]:.4f}/{t['parent'][1]:.4f} ms, this group "
-           f"{t['this'][0]:.4f}/{t['this'][1]:.4f} ms" if t else "") + f" ({card})")
-    return rec
-
-
 def train_cfg(seed: int, out_dir: str, opts=()):
     return merge_configs(TRAIN_CFG, "", [
         "MODEL.PROBABILISTIC_MODELING.CLS_VAR_LOSS.IMPL", "pallas",
@@ -1662,7 +977,7 @@ def backbone_pth(seed: int, path: str) -> str:
 
 
 def run_train(seed: int, card: str, work: str):
-    """Phase 7: the training slice at full width. Returns the launch counts
+    """Phase 5: the training slice at full width. Returns the launch counts
     of its Trainer.train run and of its last timed step."""
     cfg = train_cfg(seed, os.path.join(work, "train"),
                     ["MODEL.WEIGHTS", backbone_pth(seed, os.path.join(work, "r50.pth"))])
@@ -1812,11 +1127,11 @@ class PinnedGates(TowerDropout):
 
 
 def check_train_against_cpu(seed: int, card: str, work: str) -> None:
-    """Phase 8: one train step at 128x128, float32: the GPU through the
+    """Phase 6: one train step at 128x128, float32: the GPU through the
     kernels against the CPU through their plain versions, same weights,
     seeds and batch. The checked CPU step keeps the GPU's ReLU gates in the
     towers (PinnedGates); a second CPU step with its own gates is reported
-    beside it. The kernels' own bit-for-bit checks are phases 2 and 6."""
+    beside it. The kernels' own bit-for-bit checks are tests/test_torch_*_cuda.py."""
     size, batch_size = (128, 128), 2
     pth = backbone_pth(seed + 1, os.path.join(work, "r50_small.pth"))
     grads, losses, gates, flips, n_gates = {}, {}, None, 0, 0
@@ -1940,7 +1255,7 @@ def engines_agree(gt: dict, records: list, name: str) -> np.ndarray:
 
 
 def run_eval(seed: int, card: str, work: str):
-    """Phase 9: apply_net's main on the card, from PNGs on disk through the
+    """Phase 7: apply_net's main on the card, from PNGs on disk through the
     loader and the flagship predictor to the json and the metric suite, and
     the metric suite on the ground truth with seeded jitter."""
     t0 = time.perf_counter()
@@ -2200,7 +1515,7 @@ def train_loader_ips(cfg, backend: str, batches: int):
 
 
 def run_train_net(seed: int, card: str, work: str):
-    """Phase 10: train_net's main on the card at full width, as
+    """Phase 8: train_net's main on the card at full width, as
     `python -m pod_compare_tpu_torch.cli.train_net` runs it, from JPEGs on
     disk in BDD's layout, warm-started from a .pkl; then a run resumed from
     its step-10 checkpoint. Returns the launches of the uninterrupted run."""
@@ -2303,7 +1618,7 @@ def run_train_net(seed: int, card: str, work: str):
         raise AssertionError("the process backend's batches differ from the thread backend's")
     jpegs = sorted(os.listdir(os.path.join(root, "images", "100k", "train")))[:8]
     decode_ms, resize_ms = decode_and_resize_ms(
-        [os.path.join(root, "images", "100k", "train", name) for name in jpegs])  # root stays: phase 13
+        [os.path.join(root, "images", "100k", "train", name) for name in jpegs])  # root stays: phase 11
 
     # Step i's interval runs from step i-1's end: the first holds the
     # trainer's start, the eleventh the checkpoint and evaluation of step 10
@@ -2362,7 +1677,7 @@ CLUSTERED = {"anchor_statistics", "bayes_od", "bayes_od_covariance_intersection"
              "bayes_od_mc_dropout_mc_iid"}
 MODE_TIMED_CALLS = 5
 MAX_MODE_FLIPS = 0.01  # share of detections the GPU and CPU may disagree on
-MODES_APPLY_IMAGES = 8  # of phase 9's 32 PNGs
+MODES_APPLY_IMAGES = 8  # of phase 7's 32 PNGs
 
 
 def sync(device) -> None:
@@ -2469,7 +1784,7 @@ def call_sampling_seeds(predictor, seed: int, batch: int) -> torch.Tensor:
 
 
 def run_modes(seed: int, card: str, device="cuda", canvas=CANVAS):
-    """Phase 11, part 1: every mode at full width on the card. Returns each
+    """Phase 9, part 1: every mode at full width on the card. Returns each
     mode's record (dropout and normal launches of one call, ms/batch, peak
     memory, stage split, traced busy share, greedy clusters)."""
     images = torch.from_numpy(canvases(seed, canvas, BATCH)).to(device)
@@ -2586,7 +1901,7 @@ def z_stats(z: torch.Tensor):
 
 
 def check_sampled_law(predictor, images, seed: int, card: str) -> None:
-    """Phase 11, the Monte-Carlo banks at full width, held by law: on image
+    """Phase 9, the Monte-Carlo banks at full width, held by law: on image
     0's head outputs, the mc_iid class bank (S = 10 per anchor and class)
     against the exact mean and variance of the sigmoid, and the sampled box
     decode (S = 1000, chunked) at the analytic core's candidates against
@@ -2661,7 +1976,7 @@ def match_detections(gpu, cpu):
 
 
 def check_modes_against_cpu(seed: int, card: str) -> None:
-    """Phase 11, part 2: every mode on the GPU against its plain path on the
+    """Phase 9, part 2: every mode on the GPU against its plain path on the
     CPU at 128x128 in float32, M = 3, same weights, masks, members and
     normals (the mc_iid flagship's banks draw from the call's seeds on both
     sides, through the normal kernel on the GPU and its plain version on
@@ -2718,7 +2033,7 @@ def held_against_cpu(name, g, c) -> str:
 
 
 def bdd_subset(work: str, name: str, count: int) -> str:
-    """The first `count` of phase 9's PNGs and their ground truth in BDD's
+    """The first `count` of phase 7's PNGs and their ground truth in BDD's
     layout under work/name, for --dataset-dir. Returns the root."""
     src = os.path.join(work, "bdd")
     root = os.path.join(work, name)
@@ -2738,9 +2053,9 @@ def bdd_subset(work: str, name: str, count: int) -> str:
 
 
 def run_modes_apply_net(seed: int, card: str, work: str, members) -> dict:
-    """Phase 11, part 3: apply_net's main on ensembles_post_nms with five
+    """Phase 9, part 3: apply_net's main on ensembles_post_nms with five
     members from their random_seed_<seed> sibling checkpoints, over 8 of
-    phase 9's PNGs."""
+    phase 7's PNGs."""
     root = bdd_subset(work, "bdd_modes", MODES_APPLY_IMAGES)
     with open(os.path.join(root, "labels", "val_coco_format.json")) as f:
         ids = {im["id"] for im in json.load(f)["images"]}
@@ -2800,7 +2115,7 @@ REST_VIZ_IMAGES = 4
 # features may quantize differently (tests/test_torch_quant.py holds the
 # port against JAX to the same bound).
 MAX_CODE_FLIPS = 1e-3
-# Where phase 12 runs; a rehearsal on the CPU sets "cpu" (with small shapes
+# Where phase 10 runs; a rehearsal on the CPU sets "cpu" (with small shapes
 # and the torch.cuda calls stubbed).
 DEVICE = "cuda"
 
@@ -2809,12 +2124,12 @@ def flagship_launches(cfg) -> int:
     return int(cfg.PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS) * k1_per_pass(cfg)
 
 
-AUTO_IMAGES = 16  # of phase 9's 32 PNGs: PDQ, on the host, takes ~1.6 s an image
+AUTO_IMAGES = 16  # of phase 7's 32 PNGs: PDQ, on the host, takes ~1.6 s an image
 
 
 def run_auto_apply_net(seed: int, card: str, work: str):
-    """Phase 12, part 1: apply_net's main with --batch-size auto and
-    --run-pdq on AUTO_IMAGES of phase 9's PNGs and its checkpoint. Returns
+    """Phase 10, part 1: apply_net's main with --batch-size auto and
+    --run-pdq on AUTO_IMAGES of phase 7's PNGs and its checkpoint. Returns
     its dropout launches and its json's path."""
     data = os.path.join(work, "data")
     os.environ["POD_COMPARE_DATA_DIR"] = data
@@ -2880,7 +2195,7 @@ def run_auto_apply_net(seed: int, card: str, work: str):
 
 
 def check_quantized_conv(seed: int, card: str, weight: torch.Tensor, bias: torch.Tensor) -> None:
-    """Phase 12: ``quantized_conv3x3`` at the P3 tower shape on the card
+    """Phase 10: ``quantized_conv3x3`` at the P3 tower shape on the card
     against the CPU on the same inputs (signed, as conv 0 sees the FPN
     features, and unsigned, as the later convs see ReLU outputs): int32 sums
     equal, outputs within 1e-6 of scale; then its time and the int8
@@ -2926,7 +2241,7 @@ def check_quantized_conv(seed: int, card: str, weight: torch.Tensor, bias: torch
 
 
 def run_int8(seed: int, card: str) -> int:
-    """Phase 12, part 2: the flagship with HEAD_QUANT int8 at full width."""
+    """Phase 10, part 2: the flagship with HEAD_QUANT int8 at full width."""
     cfg = merge_configs(TRAIN_CFG, INFER_CFG)
     cfg8 = merge_configs(TRAIN_CFG, INFER_CFG, INT8)
     images = torch.from_numpy(canvases(seed, CANVAS, BATCH))
@@ -3012,7 +2327,7 @@ def int8_against_cpu(seed: int) -> str:
     first tower conv's codes), and the CPU's head then runs on the card's
     FPN features, as the training check pins the card's ReLU gates. From
     there the towers are equal bit for bit (int32 sums, dequantization, the
-    dropout kernel), and the detections are held as phase 11 holds them."""
+    dropout kernel), and the detections are held as phase 9 holds them."""
     opts = ("PARALLEL.COMPUTE_DTYPE", "float32", "PROBABILISTIC_INFERENCE.MC_DROPOUT.NUM_RUNS", 3)
     size = (128, 128)
     images = torch.from_numpy(canvases(seed + 1, size, BATCH))
@@ -3061,7 +2376,7 @@ def energy_terms(model, cfg, batch, anchors, seeds, num_samples) -> list:
 
 
 def run_energy_train(seed: int, card: str, work: str) -> int:
-    """Phase 12, part 3: the energy config's Trainer at batch 4 on 736x1280.
+    """Phase 10, part 3: the energy config's Trainer at batch 4 on 736x1280.
     Returns its focal launches."""
     cfg = merge_configs(ENERGY_CFG, "", [
         "MODEL.PROBABILISTIC_MODELING.CLS_VAR_LOSS.IMPL", "pallas",
@@ -3122,7 +2437,7 @@ def run_energy_train(seed: int, card: str, work: str) -> int:
 
 
 def run_remat(seed: int, card: str, work: str):
-    """Phase 12, part 4: one flagship train step from the same state, seeds
+    """Phase 10, part 4: one flagship train step from the same state, seeds
     and batch without and with PARALLEL.REMAT: losses equal, every gradient
     within 1e-5 of its tensor's scale, REMAT's peak lower. Returns the
     kernels' launches of each step."""
@@ -3184,7 +2499,7 @@ def run_remat(seed: int, card: str, work: str):
 
 
 def run_visualize(card: str, work: str, json_path: str) -> None:
-    """Phase 12, part 5: visualize_predictions on 4 images of the auto run's
+    """Phase 10, part 5: visualize_predictions on 4 images of the auto run's
     json: a PNG each, differing from its source image."""
     out = os.path.join(work, "viz")
     t = time.perf_counter()
@@ -3204,7 +2519,7 @@ def run_visualize(card: str, work: str, json_path: str) -> None:
 
 
 def run_rest(seed: int, card: str, work: str) -> dict:
-    """Phase 12. Returns the kernels' launches on each of its paths."""
+    """Phase 10. Returns the kernels' launches on each of its paths."""
     auto_launches, json_path = run_auto_apply_net(seed, card, work)
     run_visualize(card, work, json_path)
     int8_launches = run_int8(seed, card)
@@ -3216,7 +2531,7 @@ def run_rest(seed: int, card: str, work: str) -> dict:
 
 
 # ------------------------------------------------------------ parallel phase
-PARALLEL_IMAGES = 8  # of phase 9's PNGs
+PARALLEL_IMAGES = 8  # of phase 7's PNGs
 PARALLEL_STEPS = 3
 PARALLEL_TIMEOUT_S = 300  # each launch's own limit
 MAX_DDP_GRAD_ERROR = 6e-5  # of each gradient's scale: summation order (run_parallel)
@@ -3229,7 +2544,7 @@ def results_json(summary) -> list:
 
 
 def match_json(name: str, got: list, want: list) -> str:
-    """Phase 11's rule on two results jsons: per image, each of `want`'s
+    """Phase 9's rule on two results jsons: per image, each of `want`'s
     detections matched to an unmatched one of `got`'s of its class at IoU >
     0.99; at most 1% flips; matched boxes, covariances, scores and class
     probabilities within 1e-3 of their scale. Returns the summary line."""
@@ -3286,7 +2601,7 @@ def parallel_apply_net(argv, data_dir: str, device):
 
 
 def parallel_train_net(argv, data_dir: str, device):
-    """One process of phase 13's train_net run: ``train_net.main`` as the CLI
+    """One process of phase 11's train_net run: ``train_net.main`` as the CLI
     calls it, inside the process group ``launch`` set up. Returns rank 0's
     step and latest scalars with every rank's dropout and focal launches."""
     os.environ["POD_COMPARE_DATA_DIR"] = data_dir
@@ -3425,7 +2740,7 @@ def scaled_errors(got: dict, want: dict) -> dict:
 
 
 def parallel_train(seed: int, steps: int, canvas, out_dir: str, device):
-    """One process of phase 13's data-parallel training: the flagship
+    """One process of phase 11's data-parallel training: the flagship
     training config with the focal kernel in float32 at full width, a
     global batch of 4, this process's rows through DistributedDataParallel
     (``TrainStep.data_parallel``). Before each step rank 0 keeps the state;
@@ -3439,7 +2754,7 @@ def parallel_train(seed: int, steps: int, canvas, out_dir: str, device):
     anchors = torch.as_tensor(build_anchor_generator(cfg).concatenated(canvas), device=device)
     batches = RandomBatches(canvas, TRAIN_BATCH, cfg.MODEL.RETINANET.NUM_CLASSES,
                             cfg.INPUT.MAX_GT_BOXES, seed=seed)
-    # The backbone warm-started as phase 7's, the head at its training init.
+    # The backbone warm-started as phase 5's, the head at its training init.
     weights = convert.from_jax_params(random_jax_params(seed, NUM_CLASSES))
     state = create_train_state(cfg, device, seed=seed)
     state.model.load_state_dict({k: v for k, v in weights.items() if k.startswith("backbone.")},
@@ -3529,10 +2844,10 @@ def parallel_train(seed: int, steps: int, canvas, out_dir: str, device):
 
 def run_parallel(seed: int, card: str, work: str, members, device=None, canvas=CANVAS,
                  opts=()) -> dict:
-    """Phase 13. Returns the dropout and focal launches of its paths. A
+    """Phase 11. Returns the dropout and focal launches of its paths. A
     rehearsal on the CPU passes device 'cpu', a small canvas for the train
     steps and config overrides for apply_net."""
-    data = os.path.join(work, "data")  # phase 9's checkpoint
+    data = os.path.join(work, "data")  # phase 7's checkpoint
     os.environ["POD_COMPARE_DATA_DIR"] = data
     root = bdd_subset(work, "bdd_parallel", PARALLEL_IMAGES)
     base = ["--config-file", TRAIN_CFG, "--dataset-dir", root, "--test-dataset", "bdd_val",
@@ -3610,7 +2925,7 @@ def run_parallel(seed: int, card: str, work: str, members, device=None, canvas=C
             raise AssertionError("--num-devices above the card count ran")
 
     # 4. Data-parallel training, two ranks sharing the card (gloo over CUDA
-    # tensors). train_net's main, as the CLI runs it, on phase 10's JPEGs
+    # tensors). train_net's main, as the CLI runs it, on phase 8's JPEGs
     # warm-started from its .pkl, against train_net's main on one process;
     # the launches of the two ranks are the main path's.
     per_step = 2 * k1_per_pass(cfg)
@@ -3879,7 +3194,7 @@ def dispatch_us(device) -> dict:
     offsets = level_offsets(xs, True)
     seed = torch.tensor(12345)
     calls = {"operator": lambda: kdropout.dropout_op(x, seed, 0.2, True, 0, True),
-             "wrapper": lambda: kdropout.dropout_cuda(x, 12345, 0.2, True, 0, True),
+             "wrapper": lambda: kdropout.dropout_levels_cuda([x], 12345, 0.2, True, [0], True),
              "levels_operator": lambda: kdropout.dropout_levels_op(xs, seed, 0.2, True, offsets,
                                                                    True),
              "levels_wrapper": lambda: kdropout.dropout_levels_cuda(xs, 12345, 0.2, True, offsets,
@@ -3898,7 +3213,7 @@ def dispatch_us(device) -> dict:
 
 
 def run_export(seed: int, card: str, work: str, device="cuda", canvas=CANVAS) -> dict:
-    """Phase 14: the serving export. Returns each artifact's record (live
+    """Phase 12: the serving export. Returns each artifact's record (live
     and served launches, times, graph nodes) and, under "dispatch_us", K1's
     host cost a launch through its operator and through its wrapper. Each
     artifact is written by cli.export_model's main, as a user runs it, and
@@ -4031,10 +3346,6 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also trace one full-width call and one train step with "
                              "torch.profiler")
-    parser.add_argument("--parent", metavar="DIR",
-                        help="a checkout of another commit (the parent's): its dropout, "
-                             "normal (phase 2, 6) and focal (phase 5) kernels are built, held "
-                             "against this checkout's and timed in turns with them")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4063,14 +3374,11 @@ def main() -> int:
           "csrc/frozen_bn.cu, g++ of native/, in parallel)", t0)
 
     t0 = time.perf_counter()
-    k1 = check_kernel(args.seed, card, args.parent)
-    k3 = check_normal_kernel(args.seed, card, args.parent)
-    k4 = check_nms_kernel(args.seed, card)
-    k5 = check_frozen_bn_kernel(args.seed, card)
-    phase("kernel (dropout, normal, NMS and FrozenBN epilogue)", t0)
+    kernels = run_kernels(args.seed, card)
+    phase("kernels", t0)
 
     t0 = time.perf_counter()
-    launches, k5_launches = run_slice(args.seed, card)
+    k1_slice, k3_slice = run_slice(args.seed, card)
     phase("slice", t0)
 
     if args.profile:
@@ -4081,16 +3389,6 @@ def main() -> int:
     t0 = time.perf_counter()
     check_against_cpu(args.seed, card)
     phase("reference", t0)
-
-    cfg = merge_configs(TRAIN_CFG, "")
-    num_anchors = build_anchor_generator(cfg).concatenated(CANVAS).shape[0]
-    t0 = time.perf_counter()
-    k2 = check_focal_kernel(args.seed, card, num_anchors, args.parent)
-    phase("focal kernel", t0)
-
-    t0 = time.perf_counter()
-    k1_bwd = check_dropout_backward(args.seed, card, args.parent)
-    phase("dropout backward", t0)
 
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
@@ -4137,174 +3435,31 @@ def main() -> int:
         phase("export", t0)
     log(f"[total] {time.perf_counter() - t_all:.2f} s ({card})")
 
-    kernels = [{
-        "name": "hardware_dropout",
-        "route": "cuda",
-        "source": "pod_compare_tpu_torch/csrc/dropout.cu",
-        "replaces": "pod_compare_tpu/ops/pallas/dropout.py:28",
-        "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "l2_warm_ms": k1["warm_ms"],
-        "torch_dropout_ms": k1["torch_dropout_ms"],
-        "shape": list(P3_SHAPE),
-        "dtype": "bfloat16",
-        "backward_ms": k1_bwd["ms"],
-        "backward_plain_ms": k1_bwd["plain_ms"],
-        "backward_bound_ms": k1_bwd["bound_ms"],
-        "backward_shape": list(TRAIN_P3_SHAPE),
-        "train_launches": train_launches["dropout"],
-        "train_launches_per_step": step_launches["dropout"],
-        "eval_launches": eval_launches,
-        "eval_shape": k1["eval"]["shape"],
-        "eval_max_abs_err": k1["eval"]["max_abs_err"],
-        "eval_ms": k1["eval"]["ms"],
-        "eval_plain_ms": k1["eval"]["plain_ms"],
-        "eval_bound_ms": k1["eval"]["bound_ms"],
-        "eval_torch_dropout_ms": k1["eval"]["torch_dropout_ms"],
-        "train_net_launches": train_net_launches["dropout"],
-        "modes_launches": {name: rec["launches"] for name, rec in modes.items()},
-        "rest_launches": rest["dropout"],
-        "int8_shape": list(P3_SHAPE),
-        "int8_dtype": "float32",
-        "int8_max_abs_err": k1["f32"]["max_abs_err"],
-        "int8_ms": k1["f32"]["ms"],
-        "int8_plain_ms": k1["f32"]["plain_ms"],
-        "int8_bound_ms": k1["f32"]["bound_ms"],
-        "int8_torch_dropout_ms": k1["f32"]["torch_dropout_ms"],
-        "parallel_launches": {
-            "apply_net_1_rank": parallel["apply_net_1_rank"],
-            "apply_net_2_ranks": parallel["apply_net_2_ranks"],
-            "train_net_2_ranks": [n[0] for n in parallel["train_net_2_ranks"]],
-        },
-        "export_launches": export["flagship"]["served_launches"],
-        "export_post_nms_launches": export["post_nms"]["served_launches"],
-        "export_dispatch_us": export["dispatch_us"],
-        "export_graph_nodes": {name: rec["graph_nodes"] for name, rec in export.items()
-                               if name != "dispatch_us"},
-        "in_turns_ms": k1["in_turns_ms"],
-        "int8_in_turns_ms": k1["f32"]["in_turns_ms"],
-        "group_shapes": k1["group"]["shapes"],
-        "group_ms": k1["group"]["ms"],
-        "group_bound_ms": k1["group"]["bound_ms"],
-        "group_plain_ms": k1["group"]["plain_ms"],
-        "group_five_launches_ms": k1["group"]["five_launches_ms"],
-        "group_torch_dropout_ms": k1["group"]["torch_dropout_ms"],
-        "group_in_turns_ms": k1["group"]["in_turns_ms"],
-        "group_f32_ms": k1["group"]["f32"]["ms"],
-        "group_f32_bound_ms": k1["group"]["f32"]["bound_ms"],
-        "group_f32_five_launches_ms": k1["group"]["f32"]["five_launches_ms"],
-        "group_f32_in_turns_ms": k1["group"]["f32"]["in_turns_ms"],
-        "backward_group_shapes": k1_bwd["group"]["shapes"],
-        "backward_group_ms": k1_bwd["group"]["ms"],
-        "backward_group_bound_ms": k1_bwd["group"]["bound_ms"],
-        "backward_group_plain_ms": k1_bwd["group"]["plain_ms"],
-        "backward_group_five_launches_ms": k1_bwd["group"]["five_launches_ms"],
-        "backward_group_in_turns_ms": k1_bwd["group"]["in_turns_ms"],
-    }, {
-        "name": "stochastic_focal_elem",
-        "route": "cuda",
-        "source": "pod_compare_tpu_torch/csrc/focal.cu",
-        "replaces": "pod_compare_tpu/ops/pallas/focal.py:92",
-        "launches": train_launches["focal"],
-        "max_abs_err": k2["max_abs_err"],
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"],
-        "bound_by": "bytes" if k2["bytes_bound_ms"] >= k2["bound_ms"] else "operations",
-        "library_ms": None,
-        "bytes_bound_ms": k2["bytes_bound_ms"],
-        "issue_bound_ms": k2["issue_bound_ms"],
-        "mufu_bound_ms": k2["mufu_bound_ms"],
-        "threefry_bank_ms": k2["threefry_ms"],
-        "ptxas": k2["ptxas"],
-        "sass": k2["sass"],
-        "in_turns_ms": k2["in_turns_ms"],
-        "shape": k2["shape"],
-        "num_samples": 10,
-        "dtype": "float32",
-        "train_launches_per_step": step_launches["focal"],
-        "train_net_launches": train_net_launches["focal"],
-        "energy_launches": rest["focal"]["energy"],
-        "remat_train_step_launches": rest["focal"]["remat_train_step"],
-        "parallel_train_net_launches": [n[1] for n in parallel["train_net_2_ranks"]],
-        "index_base_bit_identical": k2["index_base_bit_identical"],
-        "parent_bit_identical": k2["parent_bit_identical"],
-    }, {
-        "name": "normal",
-        "route": "cuda",
-        "source": "pod_compare_tpu_torch/csrc/normal.cu",
-        "replaces": "none: jax.random.normal (XLA threefry) in "
-                    "pod_compare_tpu/inference/core.py, outside any Pallas kernel",
-        "launches": export["mc_iid"]["served_normal_launches"],
-        "max_abs_err": k3["max_abs_err"],
-        "ms": k3["ms"],
-        "plain_ms": k3["plain_ms"],
-        "bound_ms": k3["bound_ms"],
-        "bound_by": k3["bound_by"],
-        "library_ms": None,
-        "torch_randn_ms": k3["torch_randn_ms"],
-        "bytes_bound_ms": k3["bytes_bound_ms"],
-        "issue_bound_ms": k3["issue_bound_ms"],
-        "mufu_bound_ms": k3["mufu_bound_ms"],
-        "cpu_differ": k3["cpu_differ"],
-        "float64_max_ulps": k3["float64_max_ulps"],
-        "float64_max_abs_below": k3["float64_max_abs_below"],
-        "in_turns_ms": k3["in_turns_ms"],
-        "ptxas": k3["build"]["ptxas"],
-        "sass": k3["build"]["sass"],
-        "shape": k3["shape"],
-        "dtype": "float32",
-        "box_chunk": k3["box_chunk"],
-        "export_live_launches": export["mc_iid"]["live_normal_launches"],
-        "export_dropout_launches": export["mc_iid"]["served_launches"],
-        "modes_launches": {name: rec["normal_launches"] for name, rec in modes.items()},
-    }, {
-        "name": "batched_nms",
-        "route": "cuda",
-        "source": "pod_compare_tpu_torch/csrc/nms.cu",
-        "replaces": "none: the lax.scan of pod_compare_tpu/ops/nms.py, outside any Pallas kernel",
-        "launches": {name: rec["nms_launches"] for name, rec in modes.items()},
-        "ms": k4["ms"],
-        "plain_ms": k4["plain_ms"],
-        "bound_ms": k4["chain_ms"],
-        "bound_by": "latency: 100 steps of a block argmax and a barrier (measured)",
-        "library_ms": None,
-        "wall_ms": k4["wall_ms"],
-        "plain_wall_ms": k4["plain_wall_ms"],
-        "ptxas": k4["ptxas"],
-        "shape": [4540, 4],
-        "max_out": 100,
-        "dtype": "float32",
-        "merge": k4["merge"],
-    }, {
-        "name": "frozen_bn_act",
-        "route": "cuda",
-        "source": "pod_compare_tpu_torch/csrc/frozen_bn.cu",
-        "replaces": "none: FrozenBatchNorm's multiply-add in pod_compare_tpu/models/layers.py, "
-                    "which XLA fuses, outside any Pallas kernel",
-        "launches": k5_launches,
-        "max_abs_err": 0.0,
-        "ms": k5["ms"],
-        "plain_ms": k5["plain_ms"],
-        "bound_ms": k5["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": k5["library_ms"],
-        "backward_ms": k5["backward_ms"],
-        "backward_plain_ms": k5["backward_plain_ms"],
-        "backward_bound_ms": k5["backward_bound_ms"],
-        "backward_library_ms": k5["backward_library_ms"],
-        "shape": k5["shape"],
-        "dtype": "bfloat16",
-        "cases": k5["cases"],
-        "ptxas": k5["ptxas"],
-        "train_launches": train_launches["frozen_bn"],
-        "train_launches_per_step": step_launches["frozen_bn"],
-    }]
+    launches = {
+        "hardware_dropout": dict(
+            slice=k1_slice, train=dict(run=train_launches["dropout"],
+                                       step=step_launches["dropout"]),
+            eval=eval_launches, train_net=train_net_launches["dropout"],
+            modes={name: rec["launches"] for name, rec in modes.items()}, rest=rest["dropout"],
+            parallel=dict(apply_net_1_rank=parallel["apply_net_1_rank"],
+                          apply_net_2_ranks=parallel["apply_net_2_ranks"],
+                          train_net_2_ranks=[n[0] for n in parallel["train_net_2_ranks"]]),
+            export={name: export[name]["served_launches"] for name in ("flagship", "post_nms",
+                                                                       "mc_iid")}),
+        "stochastic_focal_elem": dict(
+            train=dict(run=train_launches["focal"], step=step_launches["focal"]),
+            train_net=train_net_launches["focal"], rest=rest["focal"],
+            parallel=dict(train_net_2_ranks=[n[1] for n in parallel["train_net_2_ranks"]])),
+        "normal": dict(
+            modes={name: rec["normal_launches"] for name, rec in modes.items()},
+            export=dict(mc_iid=export["mc_iid"]["served_normal_launches"],
+                        mc_iid_live=export["mc_iid"]["live_normal_launches"])),
+        "batched_nms": dict(modes={name: rec["nms_launches"] for name, rec in modes.items()}),
+        "frozen_bn_act": dict(slice=k3_slice, train=dict(run=train_launches["frozen_bn"],
+                                                         step=step_launches["frozen_bn"])),
+    }
+    for record in kernels:
+        record["launches"] = launches[record["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

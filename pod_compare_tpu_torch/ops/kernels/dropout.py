@@ -20,30 +20,27 @@ g·scale : 0`` with ``out`` the forward's output, so no mask is stored. The
 cotangent is brought to the forward's memory format first, since the
 stream index follows memory order.
 
-``dropout`` and ``dropout_backward`` send CPU tensors to the plain version
-and CUDA tensors to the kernel; anything else raises. ``dropout_autograd``
-is the differentiable form. ``LAUNCHES`` counts kernel launches, forward
-and backward alike.
+The host enters the kernel through one group: ``dropout_levels`` takes a
+list of 1 to ``MAX_LEVELS`` tensors ("levels") with a stream offset each,
+under one seed, rate, mask kind and relu (the head's mask draw of one (run,
+tower, layer) over the five FPN levels), and sends CPU tensors to the plain
+version (``dropout_levels_plain``: ``dropout_plain`` of each level at its
+offset) and CUDA tensors to one launch (``dropout_levels_cuda``,
+``pod_dropout_forward_levels``); anything else raises. A single tensor is
+the group of one. ``dropout_levels_backward`` is its backward (one launch)
+and ``dropout_levels_autograd`` its differentiable form. ``LAUNCHES``
+counts kernel launches, forward and backward alike.
 
-``dropout_levels`` takes a list of up to ``MAX_LEVELS`` tensors ("levels")
-with a stream offset each, under one seed, rate, mask kind and relu: the
-head's mask draw of one (run, tower, layer) over the five FPN levels, one
-launch (``pod_dropout_forward_levels``) where ``dropout`` per level takes
-five. Its output is ``dropout`` of each level at its offset, bit for bit
-(``dropout_levels_plain``); ``dropout_levels_backward`` and
-``dropout_levels_autograd`` are its backward (one launch) and its
-differentiable form. A single tensor is launched as the group of one.
-
-``dropout_op`` is the forward registered as the PyTorch operator
-``pod_compare_tpu_torch::dropout``, with the seed as an int64 0-d tensor on
-the CPU: ``torch.export`` records it as one node whose seed is an input of
-the program, as the Mosaic custom call is in the JAX package's StableHLO,
-so every served call draws fresh masks. Its CPU kernel is the plain
-version, its CUDA kernel ``dropout_cuda`` (the seed is read on the host,
-with no device sync), and its fake kernel gives the output's shape.
-``dropout_levels_op`` is ``dropout_levels`` as the operator
-``pod_compare_tpu_torch::dropout_levels`` (a list in, a list out; one node
-of a program per (run, tower, layer)), registered the same way.
+``dropout_levels_op`` is ``dropout_levels`` as the PyTorch operator
+``pod_compare_tpu_torch::dropout_levels``, with the seed as an int64 0-d
+tensor on the CPU: ``torch.export`` records one node a (run, tower, layer)
+whose seed is an input of the program, as the Mosaic custom call is in the
+JAX package's StableHLO, so every served call draws fresh masks. Its CPU
+kernel is the plain version, its CUDA kernel the launch (the seed is read
+on the host, with no device sync), and its fake kernel gives the outputs'
+shapes. ``dropout_op`` is the operator ``pod_compare_tpu_torch::dropout``,
+the group of one on a single tensor, which programs exported before the
+grouped operator call.
 """
 
 import ctypes
@@ -325,128 +322,7 @@ def dropout_levels_backward_cuda(
     return dxs
 
 
-def dropout_cuda(
-    x: torch.Tensor,
-    seed: int,
-    rate: float,
-    batch_shared: bool = False,
-    offset: int = 0,
-    relu: bool = False,
-) -> torch.Tensor:
-    """Launch the forward of csrc/dropout.cu on one tensor: the group of one."""
-    if x.device.type != "cuda":
-        raise ValueError(f"dropout_cuda needs a CUDA tensor, got {x.device}")
-    return dropout_levels_cuda([x], seed, rate, batch_shared, [offset], relu)[0]
-
-
-def dropout_backward_cuda(
-    g: torch.Tensor,
-    out: torch.Tensor,
-    seed: int,
-    rate: float,
-    batch_shared: bool = False,
-    offset: int = 0,
-    relu: bool = False,
-) -> torch.Tensor:
-    """Launch the backward of csrc/dropout.cu on the cotangent g, brought to
-    the memory format of the forward's output `out`: the group of one."""
-    if g.device.type != "cuda" or out.device != g.device:
-        raise ValueError(f"dropout_backward_cuda needs CUDA tensors, got {g.device}, {out.device}")
-    return dropout_levels_backward_cuda([g], [out], seed, rate, batch_shared, [offset], relu)[0]
-
-
-def dropout(
-    x: torch.Tensor,
-    seed: int,
-    rate: float,
-    batch_shared: bool = False,
-    offset: int = 0,
-    relu: bool = False,
-) -> torch.Tensor:
-    """Dropout (with an optional fused ReLU) of x under `seed`: the plain
-    version for a CPU tensor, the CUDA kernel for a CUDA tensor."""
-    if x.device.type == "cpu":
-        return dropout_plain(x, seed, rate, batch_shared, offset, relu)
-    if x.device.type == "cuda":
-        return dropout_cuda(x, seed, rate, batch_shared, offset, relu)
-    raise ValueError(f"dropout has no path for device {x.device}")
-
-
-# The forward as the PyTorch operator pod_compare_tpu_torch::dropout,
-# registered through torch.library.Library rather than custom_op: custom_op
-# runs its kernels under torch._disable_dynamo, whose first call in a process
-# imports torch._dynamo and whose every call adds host time to the launch.
-_LIB = torch.library.Library("pod_compare_tpu_torch", "FRAGMENT")
-_LIB.define("dropout(Tensor x, Tensor seed, float rate, bool batch_shared=False, "
-            "int offset=0, bool relu=False) -> Tensor")
-
-
-def _dropout_op_cpu(x, seed, rate, batch_shared=False, offset=0, relu=False):
-    return dropout_plain(x, int(seed), rate, batch_shared, offset, relu)
-
-
-def _dropout_op_cuda(x, seed, rate, batch_shared=False, offset=0, relu=False):
-    if seed.device.type != "cpu":
-        raise ValueError(f"dropout_op reads its seed on the host; got one on {seed.device}")
-    return dropout_cuda(x, int(seed), rate, batch_shared, offset, relu)
-
-
-_LIB.impl("dropout", _dropout_op_cpu, "CPU")
-_LIB.impl("dropout", _dropout_op_cuda, "CUDA")
-
-
-@torch.library.register_fake("pod_compare_tpu_torch::dropout")
-def _dropout_op_fake(x, seed, rate, batch_shared=False, offset=0, relu=False):
-    return torch.empty_like(x)
-
-
-def dropout_op(
-    x: torch.Tensor,
-    seed: torch.Tensor,
-    rate: float,
-    batch_shared: bool = False,
-    offset: int = 0,
-    relu: bool = False,
-) -> torch.Tensor:
-    """`dropout` through the operator, its seed an int64 0-d CPU tensor: the
-    plain version for a CPU tensor, the CUDA kernel for a CUDA tensor."""
-    return torch.ops.pod_compare_tpu_torch.dropout.default(x, seed, rate, batch_shared, offset,
-                                                           relu)
-
-
-def dropout_backward(
-    g: torch.Tensor,
-    out: torch.Tensor,
-    seed: int,
-    rate: float,
-    batch_shared: bool = False,
-    offset: int = 0,
-    relu: bool = False,
-) -> torch.Tensor:
-    """The gradient of `dropout(x, seed, rate, ...)` for the cotangent g,
-    given the forward's output `out`: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
-    if g.device.type == "cpu":
-        return dropout_backward_plain(g, out, seed, rate, batch_shared, offset, relu)
-    if g.device.type == "cuda":
-        return dropout_backward_cuda(g, out, seed, rate, batch_shared, offset, relu)
-    raise ValueError(f"dropout_backward has no path for device {g.device}")
-
-
-def dropout_autograd(
-    x: torch.Tensor,
-    seed: int,
-    rate: float,
-    batch_shared: bool = False,
-    offset: int = 0,
-    relu: bool = False,
-) -> torch.Tensor:
-    """`dropout` with a backward that replays the mask from the seed: the
-    group of one of `dropout_levels_autograd`."""
-    return dropout_levels_autograd([x], seed, rate, batch_shared, [offset], relu)[0]
-
-
-# ------------------------------------------------------------ grouped levels
+# ------------------------------------------------------------ dispatch
 def dropout_levels(
     xs: Sequence[torch.Tensor],
     seed: int,
@@ -455,7 +331,7 @@ def dropout_levels(
     offsets: Sequence[int],
     relu: bool = False,
 ) -> List[torch.Tensor]:
-    """`dropout` of each level of `xs` at its offset under one seed: the
+    """`dropout_plain` of each level of `xs` at its offset under one seed: the
     plain version for CPU tensors, one launch of the grouped kernel for CUDA
     tensors."""
     _check_group(xs, offsets)
@@ -486,6 +362,40 @@ def dropout_levels_backward(
     raise ValueError(f"dropout_levels_backward has no path for device {outs[0].device}")
 
 
+class _DropoutLevels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, seed, rate, batch_shared, offsets, relu, *xs):
+        outs = dropout_levels(xs, seed, rate, batch_shared, offsets, relu)
+        ctx.save_for_backward(*outs)
+        ctx.args = (seed, rate, batch_shared, offsets, relu)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        dxs = dropout_levels_backward(gs, ctx.saved_tensors, *ctx.args)
+        return (None,) * 5 + tuple(dxs)
+
+
+def dropout_levels_autograd(
+    xs: Sequence[torch.Tensor],
+    seed: int,
+    rate: float,
+    batch_shared: bool,
+    offsets: Sequence[int],
+    relu: bool = False,
+) -> List[torch.Tensor]:
+    """`dropout_levels` with a backward that replays every level's mask from
+    the seed in one launch."""
+    return list(_DropoutLevels.apply(seed, rate, batch_shared, list(offsets), relu, *xs))
+
+
+# ------------------------------------------------------------ operators
+# The operators, registered through torch.library.Library rather than
+# custom_op: custom_op runs its kernels under torch._disable_dynamo, whose
+# first call in a process imports torch._dynamo and whose every call adds host
+# time to the launch. pod_compare_tpu_torch::dropout is one tensor, the group
+# of one: programs exported before the grouped operator call it.
+_LIB = torch.library.Library("pod_compare_tpu_torch", "FRAGMENT")
 _LIB.define("dropout_levels(Tensor[] xs, Tensor seed, float rate, bool batch_shared, "
             "int[] offsets, bool relu) -> Tensor[]")
 
@@ -523,28 +433,38 @@ def dropout_levels_op(
         list(xs), seed, rate, batch_shared, [int(o) for o in offsets], relu)
 
 
-class _DropoutLevels(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, seed, rate, batch_shared, offsets, relu, *xs):
-        outs = dropout_levels(xs, seed, rate, batch_shared, offsets, relu)
-        ctx.save_for_backward(*outs)
-        ctx.args = (seed, rate, batch_shared, offsets, relu)
-        return tuple(outs)
-
-    @staticmethod
-    def backward(ctx, *gs):
-        dxs = dropout_levels_backward(gs, ctx.saved_tensors, *ctx.args)
-        return (None,) * 5 + tuple(dxs)
+_LIB.define("dropout(Tensor x, Tensor seed, float rate, bool batch_shared=False, "
+            "int offset=0, bool relu=False) -> Tensor")
 
 
-def dropout_levels_autograd(
-    xs: Sequence[torch.Tensor],
-    seed: int,
+def _dropout_op_cpu(x, seed, rate, batch_shared=False, offset=0, relu=False):
+    return dropout_levels_plain([x], int(seed), rate, batch_shared, [offset], relu)[0]
+
+
+def _dropout_op_cuda(x, seed, rate, batch_shared=False, offset=0, relu=False):
+    if seed.device.type != "cpu":
+        raise ValueError(f"dropout_op reads its seed on the host; got one on {seed.device}")
+    return dropout_levels_cuda([x], int(seed), rate, batch_shared, [offset], relu)[0]
+
+
+_LIB.impl("dropout", _dropout_op_cpu, "CPU")
+_LIB.impl("dropout", _dropout_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("pod_compare_tpu_torch::dropout")
+def _dropout_op_fake(x, seed, rate, batch_shared=False, offset=0, relu=False):
+    return torch.empty_like(x)
+
+
+def dropout_op(
+    x: torch.Tensor,
+    seed: torch.Tensor,
     rate: float,
-    batch_shared: bool,
-    offsets: Sequence[int],
+    batch_shared: bool = False,
+    offset: int = 0,
     relu: bool = False,
-) -> List[torch.Tensor]:
-    """`dropout_levels` with a backward that replays every level's mask from
-    the seed in one launch."""
-    return list(_DropoutLevels.apply(seed, rate, batch_shared, list(offsets), relu, *xs))
+) -> torch.Tensor:
+    """`dropout_levels` of the one tensor x at `offset` through the operator
+    pod_compare_tpu_torch::dropout, its seed an int64 0-d CPU tensor."""
+    return torch.ops.pod_compare_tpu_torch.dropout.default(x, seed, rate, batch_shared, offset,
+                                                           relu)

@@ -8,9 +8,10 @@ the JAX side is the dispatcher's statistical contract
 `tower_dropout_masks(..., dtype=f32)` + `apply_mask`, which the MC bank
 uses. Statistical bands are 6 standard deviations of a binomial share.
 
-The grouped form (``dropout_levels``: one launch per (run, tower, layer)
-over the FPN levels on a card) is held bit for bit against ``dropout`` of
-each level at its offset, through its plain version, its operator and its
+The kernel's host entry is the group (``dropout_levels``: one launch per
+(run, tower, layer) over the FPN levels on a card); a single tensor is the
+group of one. A group is held bit for bit against ``dropout_plain`` of each
+level at its offset, through its plain version, its operator and its
 autograd form.
 """
 
@@ -31,6 +32,11 @@ RATE = 0.2
 
 def _band(n, rate=RATE):
     return 6.0 * math.sqrt(rate * (1 - rate) / n)
+
+
+def _one(x, seed, rate, batch_shared=False, offset=0, relu=False):
+    """`dropout_levels` of x alone: the group of one."""
+    return kd.dropout_levels([x], seed, rate, batch_shared, [offset], relu)[0]
 
 
 def test_philox_known_answers():
@@ -59,7 +65,7 @@ def test_philox_known_answers():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_keep_share_scale_and_mean(dtype):
     x = torch.ones(4, 64, 32, 32, dtype=dtype)
-    out = kd.dropout(x, seed=3, rate=RATE).float()
+    out = _one(x, seed=3, rate=RATE).float()
     dropped = float((out == 0).float().mean())
     assert abs(dropped - RATE) < _band(out.numel())
     np.testing.assert_array_equal(out[out != 0].numpy(), 1.25)
@@ -69,26 +75,26 @@ def test_keep_share_scale_and_mean(dtype):
 def test_expectation_over_seeds_is_the_input():
     """E[out] = x: the mean over many seeds of each element approaches x."""
     x = torch.randn(1, 8, 4, 8)
-    outs = torch.stack([kd.dropout(x, seed=s, rate=RATE) for s in range(2000)])
+    outs = torch.stack([_one(x, seed=s, rate=RATE) for s in range(2000)])
     sd = x.abs() * math.sqrt(RATE / (1 - RATE)) / math.sqrt(outs.shape[0])
     assert ((outs.mean(dim=0) - x).abs() <= 6 * sd + 1e-6).all()
 
 
 def test_distinct_seeds_distinct_masks_same_seed_replays():
     x = torch.ones(2, 16, 8, 8)
-    a = kd.dropout(x, seed=1, rate=0.5)
-    b = kd.dropout(x, seed=2, rate=0.5)
+    a = _one(x, seed=1, rate=0.5)
+    b = _one(x, seed=2, rate=0.5)
     assert not torch.equal(a, b)
-    assert torch.equal(a, kd.dropout(x, seed=1, rate=0.5))
+    assert torch.equal(a, _one(x, seed=1, rate=0.5))
     # Seeds differing only in their high word give other masks too.
-    assert not torch.equal(a, kd.dropout(x, seed=1 + (1 << 32), rate=0.5))
+    assert not torch.equal(a, _one(x, seed=1 + (1 << 32), rate=0.5))
 
 
 def test_batch_shared_mask_is_constant_over_the_batch():
     x = torch.ones(3, 16, 8, 8).contiguous(memory_format=torch.channels_last)
-    shared = kd.dropout(x, seed=9, rate=RATE, batch_shared=True)
+    shared = _one(x, seed=9, rate=RATE, batch_shared=True)
     assert torch.equal(shared[0], shared[1]) and torch.equal(shared[0], shared[2])
-    per_sample = kd.dropout(x, seed=9, rate=RATE)
+    per_sample = _one(x, seed=9, rate=RATE)
     assert not torch.equal(per_sample[0], per_sample[1])
     # The shared mask is the per-sample mask of the first image.
     assert torch.equal(shared[0], per_sample[0])
@@ -99,20 +105,20 @@ def test_stream_index_runs_in_memory_order_with_offsets():
     channels_last tensor takes its mask in NHWC order, and one draw over
     several levels equals the per-level draws at their offsets."""
     x = torch.ones(1, 8, 4, 4)
-    nhwc = kd.dropout(x.permute(0, 2, 3, 1).contiguous(), seed=4, rate=RATE)
-    cl = kd.dropout(x.contiguous(memory_format=torch.channels_last), seed=4, rate=RATE)
+    nhwc = _one(x.permute(0, 2, 3, 1).contiguous(), seed=4, rate=RATE)
+    cl = _one(x.contiguous(memory_format=torch.channels_last), seed=4, rate=RATE)
     assert cl.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(cl.permute(0, 2, 3, 1), nhwc)
-    flat = kd.dropout(torch.ones(1, 8 * 16 + 8 * 4), seed=4, rate=RATE)
-    a = kd.dropout(torch.ones(1, 8 * 16), seed=4, rate=RATE)
-    b = kd.dropout(torch.ones(1, 8 * 4), seed=4, rate=RATE, offset=8 * 16)
+    flat = _one(torch.ones(1, 8 * 16 + 8 * 4), seed=4, rate=RATE)
+    a = _one(torch.ones(1, 8 * 16), seed=4, rate=RATE)
+    b = _one(torch.ones(1, 8 * 4), seed=4, rate=RATE, offset=8 * 16)
     assert torch.equal(flat, torch.cat([a, b], dim=1))
 
 
 def test_fused_relu_is_relu_then_dropout():
     x = torch.randn(2, 16, 4, 4)
-    fused = kd.dropout(x, seed=5, rate=RATE, relu=True)
-    two_step = kd.dropout(torch.relu(x), seed=5, rate=RATE)
+    fused = _one(x, seed=5, rate=RATE, relu=True)
+    two_step = _one(torch.relu(x), seed=5, rate=RATE)
     assert torch.equal(fused, two_step)
     assert (fused >= 0).all()
 
@@ -121,7 +127,7 @@ def test_bf16_scale_is_rounded_to_the_dtype():
     assert kd.keep_scale(0.3, torch.bfloat16) == float(torch.tensor(1 / 0.7, dtype=torch.bfloat16))
     assert kd.keep_scale(0.2, torch.float32) == 1.25
     x = torch.randn(1, 64, dtype=torch.bfloat16)
-    out = kd.dropout(x, seed=1, rate=0.3)
+    out = _one(x, seed=1, rate=0.3)
     kept = out != 0
     scale = torch.tensor(kd.keep_scale(0.3, torch.bfloat16), dtype=torch.bfloat16)
     assert torch.equal(out[kept], (x * scale)[kept])
@@ -144,21 +150,21 @@ def test_keep_threshold_law():
 )
 def test_wrapper_rejects_what_the_kernel_cannot_take(make, error):
     with pytest.raises(error):
-        kd.dropout(make(), seed=0, rate=RATE)
+        _one(make(), seed=0, rate=RATE)
 
 
 def test_offset_must_be_word_aligned_and_no_other_device():
     with pytest.raises(ValueError):
-        kd.dropout(torch.ones(2, 8), seed=0, rate=RATE, offset=2)
+        _one(torch.ones(2, 8), seed=0, rate=RATE, offset=2)
     with pytest.raises(ValueError):
-        kd.dropout(torch.ones(2, 8, device="meta"), seed=0, rate=RATE)
+        _one(torch.ones(2, 8, device="meta"), seed=0, rate=RATE)
     with pytest.raises(ValueError):
-        kd.dropout_cuda(torch.ones(2, 8), seed=0, rate=RATE)
+        kd.dropout_levels_cuda([torch.ones(2, 8)], 0, RATE, False, [0])
 
 
 def test_plain_path_counts_no_launch():
     before = kd.LAUNCHES
-    kd.dropout(torch.ones(2, 8), seed=0, rate=RATE)
+    _one(torch.ones(2, 8), seed=0, rate=RATE)
     assert kd.LAUNCHES == before
 
 
@@ -187,7 +193,7 @@ def test_kernel_dropout_draws_one_mask_per_tower_layer_over_all_levels():
     assert offsets == [0, 16 * 16]
     td = KernelDropout([[11, 12], [13, 14]], RATE, offsets, batch_shared=True)
     lvl0, lvl1 = td(feats, 1, 0)
-    whole = kd.dropout(torch.ones(1, 16 * 16 + 16 * 4), seed=13, rate=RATE)
+    whole = _one(torch.ones(1, 16 * 16 + 16 * 4), seed=13, rate=RATE)
     joined = torch.cat([lvl0[0].permute(1, 2, 0).reshape(-1), lvl1[0].permute(1, 2, 0).reshape(-1)])
     assert torch.equal(joined, whole[0])
 
@@ -202,8 +208,7 @@ def test_autograd_gradient_is_keep_scale_g_where_x_positive(shared, cotangent):
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(2, 16, 4, 6, generator=gen).contiguous(memory_format=torch.channels_last)
     x.requires_grad_(True)
-    args = dict(batch_shared=shared, offset=64, relu=True)
-    y = kd.dropout_autograd(x, 7, RATE, **args)
+    (y,) = kd.dropout_levels_autograd([x], 7, RATE, shared, [64], relu=True)
     g = torch.randn(2, 16, 4, 6, generator=gen)
     if cotangent == "channels_last":
         g = g.contiguous(memory_format=torch.channels_last)
@@ -211,7 +216,7 @@ def test_autograd_gradient_is_keep_scale_g_where_x_positive(shared, cotangent):
         assert g.is_contiguous() and not g.is_contiguous(memory_format=torch.channels_last)
     y.backward(g)
     ones = torch.ones_like(x).contiguous(memory_format=torch.channels_last)
-    keep = kd.dropout(ones, 7, RATE, batch_shared=shared, offset=64) != 0
+    keep = _one(ones, 7, RATE, batch_shared=shared, offset=64) != 0
     expect = keep * kd.keep_scale(RATE, x.dtype) * g * (x > 0)
     assert torch.equal(x.grad, expect)
     assert x.grad.is_contiguous(memory_format=torch.channels_last)
@@ -219,9 +224,9 @@ def test_autograd_gradient_is_keep_scale_g_where_x_positive(shared, cotangent):
 
 def test_autograd_without_relu_and_in_bf16():
     x = torch.randn(1, 8, 4, 4).to(torch.bfloat16).requires_grad_(True)
-    y = kd.dropout_autograd(x, 3, 0.3)
+    (y,) = kd.dropout_levels_autograd([x], 3, 0.3, False, [0])
     y.backward(torch.ones_like(y))
-    keep = kd.dropout(torch.ones_like(x), 3, 0.3) != 0
+    keep = _one(torch.ones_like(x), 3, 0.3) != 0
     scale = torch.tensor(kd.keep_scale(0.3, torch.bfloat16), dtype=torch.bfloat16)
     assert torch.equal(x.grad, torch.where(keep, scale, torch.zeros_like(scale)))
     # Without the fused ReLU the gate is not read: negative kept inputs pass.
@@ -230,16 +235,16 @@ def test_autograd_without_relu_and_in_bf16():
 
 def test_backward_plain_replays_the_mask_like_the_forward():
     x = torch.randn(2, 8, 2, 4).contiguous(memory_format=torch.channels_last)
-    out = kd.dropout(x, 11, RATE, offset=8, relu=True)
+    out = _one(x, 11, RATE, offset=8, relu=True)
     g = torch.ones_like(x)
-    dx = kd.dropout_backward(g, out, 11, RATE, offset=8, relu=True)
+    (dx,) = kd.dropout_levels_backward([g], [out], 11, RATE, False, [8], relu=True)
     assert torch.equal(dx != 0, out > 0)
     assert torch.equal(dx, kd.dropout_backward_plain(g.contiguous(), out, 11, RATE, offset=8,
                                                       relu=True))
     with pytest.raises(ValueError):
-        kd.dropout_backward(g.to("meta"), out, 11, RATE)
+        kd.dropout_levels_backward([g.to("meta")], [out.to("meta")], 11, RATE, False, [0])
     with pytest.raises(ValueError):
-        kd.dropout_backward_cuda(g, out, 11, RATE)
+        kd.dropout_levels_backward_cuda([g], [out], 11, RATE, False, [0])
 
 
 def test_kernel_dropout_is_differentiable_only_under_autograd():
@@ -292,7 +297,7 @@ def test_levels_equal_per_level_dropout_at_the_offsets(dtype, shared, relu):
 @pytest.mark.parametrize("shared", [False, True])
 def test_grouped_autograd_backward_equals_the_per_level_backward(dtype, shared):
     """One backward over the levels (NCHW cotangents, as a conv's backward
-    may hand them) equals `dropout_autograd`'s per level, bit for bit."""
+    may hand them) equals each level's own group of one, bit for bit."""
     xs = _levels(dtype)
     offsets = level_offsets(xs, shared)
     gen = torch.Generator().manual_seed(5)
@@ -302,7 +307,7 @@ def test_grouped_autograd_backward_equals_the_per_level_backward(dtype, shared):
     torch.autograd.backward(ys, gs)
     for x, leaf, y, g, o in zip(xs, grouped, ys, gs, offsets):
         single = x.clone().requires_grad_(True)
-        y1 = kd.dropout_autograd(single, 9, RATE, shared, o, relu=True)
+        (y1,) = kd.dropout_levels_autograd([single], 9, RATE, shared, [o], relu=True)
         y1.backward(g)
         assert torch.equal(y.detach(), y1.detach())
         assert torch.equal(leaf.grad, single.grad)

@@ -3,10 +3,11 @@
 These tests skip where there is no CUDA device. The grouped kernel (one
 launch per (run, tower, layer) over the five FPN levels) is held bit for
 bit against its plain version at the level lists of the main paths: the
-inference canvas 736x1280 and apply_net's 768x1344 at batch 2 with
-batch-shared masks, the training canvas at batch 4 with per-sample and
-batch-shared masks (whose 2.5 million chunks take the grid round its loop
-about ten times), and a small canvas. The file imports neither
+inference canvas 736x1280 at batch 2 with batch-shared masks, apply_net's
+768x1344 at batch 2 with batch-shared and per-sample masks, the training
+canvas at batch 4 with per-sample and batch-shared masks (whose 2.5 million
+chunks take the grid round its loop about ten times), and a small canvas.
+A single tensor is launched as the group of one. The file imports neither
 JAX nor the JAX package, so on a machine with a card it runs without the
 suite's conftest:
 
@@ -25,6 +26,16 @@ def _cuda():
         pytest.skip("needs a CUDA device")
 
 
+def _one(x, seed, rate, batch_shared=False, offset=0, relu=False):
+    """`dropout_levels` of x alone: the group of one."""
+    return kd.dropout_levels([x], seed, rate, batch_shared, [offset], relu)[0]
+
+
+def _one_backward(g, out, seed, rate, batch_shared=False, offset=0, relu=False):
+    """`dropout_levels_backward` of the group of one."""
+    return kd.dropout_levels_backward([g], [out], seed, rate, batch_shared, [offset], relu)[0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("relu", [False, True])
@@ -34,7 +45,7 @@ def test_kernel_matches_plain_bit_for_bit(dtype, shared, relu):
     x = x.contiguous(memory_format=torch.channels_last)
     args = dict(seed=123456789, rate=0.2, batch_shared=shared, offset=1024, relu=relu)
     before = kd.LAUNCHES
-    k = kd.dropout(x, **args)
+    k = _one(x, **args)
     assert kd.LAUNCHES == before + 1
     assert k.is_contiguous(memory_format=torch.channels_last)
     p = kd.dropout_plain(x, **args)
@@ -47,7 +58,7 @@ def test_kernel_matches_plain_on_odd_shapes_and_large_seeds(shape):
     _cuda()
     x = torch.randn(shape, device="cuda")
     for seed in (0, 2 ** 64 - 1):
-        k = kd.dropout(x, seed=seed, rate=0.5, offset=4 * 2 ** 33)
+        k = _one(x, seed=seed, rate=0.5, offset=4 * 2 ** 33)
         assert torch.equal(k, kd.dropout_plain(x, seed=seed, rate=0.5, offset=4 * 2 ** 33))
 
 
@@ -64,9 +75,9 @@ def test_kernels_match_plain_past_one_grid_pass(dtype):
     g = torch.randn(shape, device="cuda").to(dtype)
     args = dict(seed=20240517, rate=0.2, offset=512, relu=True)
     bits = torch.int32 if dtype == torch.float32 else torch.int16
-    out = kd.dropout(x, **args)
+    out = _one(x, **args)
     assert torch.equal(out.view(bits), kd.dropout_plain(x, **args).view(bits))
-    k = kd.dropout_backward(g, out, **args)
+    k = _one_backward(g, out, **args)
     p = kd.dropout_backward_plain(g, out, **args)
     assert torch.equal(k.contiguous().view(bits), p.contiguous().view(bits))
 
@@ -75,7 +86,7 @@ def test_kernel_rejects_misaligned_storage():
     _cuda()
     x = torch.randn(4 * 1024 + 1, device="cuda")[1:].reshape(4, 1024)
     with pytest.raises(ValueError):
-        kd.dropout(x, seed=0, rate=0.2)
+        _one(x, seed=0, rate=0.2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -88,17 +99,17 @@ def test_backward_kernel_matches_plain_bit_for_bit(dtype, shared, cotangent):
     x = torch.randn(2, 256, 24, 40, device="cuda").to(dtype)
     x = x.contiguous(memory_format=torch.channels_last)
     args = dict(seed=987654321, rate=0.2, batch_shared=shared, offset=2048, relu=True)
-    out = kd.dropout(x, **args)
+    out = _one(x, **args)
     g = torch.randn(x.shape, device="cuda").to(dtype)
     if cotangent == "channels_last":
         g = g.contiguous(memory_format=torch.channels_last)
     before = kd.LAUNCHES
-    k = kd.dropout_backward(g, out, **args)
+    k = _one_backward(g, out, **args)
     assert kd.LAUNCHES == before + 1
     p = kd.dropout_backward_plain(g, out, **args)
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(k.contiguous().view(bits), p.contiguous().view(bits))
-    keep = kd.dropout(torch.ones_like(x), **dict(args, relu=False)) != 0
+    keep = _one(torch.ones_like(x), **dict(args, relu=False)) != 0
     expect = torch.where(keep & (x > 0), g * kd.keep_scale(0.2, dtype), torch.zeros_like(g))
     assert torch.equal(k.contiguous().view(bits), expect.contiguous().view(bits))
 
@@ -108,10 +119,10 @@ def test_autograd_dropout_launches_forward_and_backward_kernels():
     x = torch.randn(2, 64, 8, 16, device="cuda").contiguous(memory_format=torch.channels_last)
     x.requires_grad_(True)
     before = kd.LAUNCHES
-    y = kd.dropout_autograd(x, 5, 0.2, relu=True)
+    (y,) = kd.dropout_levels_autograd([x], 5, 0.2, False, [0], relu=True)
     y.backward(torch.ones_like(y))
     assert kd.LAUNCHES == before + 2
-    keep = kd.dropout(torch.ones_like(x), 5, 0.2) != 0
+    keep = _one(torch.ones_like(x), 5, 0.2) != 0
     assert torch.equal(x.grad, (keep & (x > 0)) * 1.25)
 
 
@@ -122,8 +133,8 @@ def _levels(canvas, batch, dtype, seed=0):
             for st in (8, 16, 32, 64, 128)]
 
 
-GROUPS = [((736, 1280), 2, True), ((768, 1344), 2, True), ((736, 1280), 4, False),
-          ((736, 1280), 4, True), ((128, 128), 2, False)]
+GROUPS = [((736, 1280), 2, True), ((768, 1344), 2, True), ((768, 1344), 2, False),
+          ((736, 1280), 4, False), ((736, 1280), 4, True), ((128, 128), 2, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -151,12 +162,13 @@ def test_grouped_kernel_matches_plain_at_the_main_paths_levels(dtype, canvas, ba
 
 
 def test_grouped_kernel_equals_the_single_launches_and_the_operator():
-    """A group of five equals the five one-level launches at their offsets,
-    through the wrapper and through the operator."""
+    """A group of five through the operator equals the five groups of one
+    at their offsets."""
     _cuda()
     xs = _levels((736, 1280), 2, torch.bfloat16, seed=3)
     offsets = level_offsets(xs, True)
-    singles = [kd.dropout_cuda(x, 77, 0.2, True, o, True) for x, o in zip(xs, offsets)]
+    singles = [kd.dropout_levels_cuda([x], 77, 0.2, True, [o], True)[0]
+               for x, o in zip(xs, offsets)]
     before = kd.LAUNCHES
     grouped = kd.dropout_levels_op(xs, torch.tensor(77), 0.2, True, offsets, True)
     assert kd.LAUNCHES == before + 1
@@ -176,6 +188,6 @@ def test_kernel_dropout_launches_once_per_tower_and_layer_each_way():
     sum(y.float().sum() for y in ys).backward()
     assert kd.LAUNCHES == before + 2
     for x, y, o in zip(xs, ys, td.level_offsets):
-        keep = kd.dropout(torch.ones_like(x), 2, 0.2, False, o) != 0
+        keep = _one(torch.ones_like(x), 2, 0.2, False, o) != 0
         assert torch.equal(x.grad, (keep & (x > 0)) * 1.25)
         assert torch.equal(y, kd.dropout_plain(x.detach(), 2, 0.2, False, o, True))

@@ -140,14 +140,12 @@ def test_kernel_matches_plain_off_the_vector_path(layout, num_samples):
 
 
 @pytest.mark.parametrize("num_samples", [3, 10])
-@pytest.mark.parametrize("first", [1, 3])
+@pytest.mark.parametrize("first", [0, 1, 2, 3])
 def test_index_base_draws_the_full_draw_s_rows(first, num_samples):
     """A data-parallel process's rows [first:] of the training path's
     (4, R, 7) logits, launched with ``index_base`` at their first element,
     give the full launch's rows bit for bit, and match the plain version
-    with the same base. At base 0 the kernel is the one it was: the smoke's
-    focal phase, given ``--parent`` (a checkout of the commit before
-    ``index_base``), holds the two bit for bit."""
+    with the same base; rows [0:] are one process's whole launch."""
     _cuda()
     x, s, t = _inputs((4, 176580, 7), seed=first)
     full = kf.focal(x, s, t, 123, num_samples)

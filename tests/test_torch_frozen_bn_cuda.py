@@ -35,6 +35,7 @@ def _cuda():
 SHAPES = [
     ("x101_res2_conv1_b16", (16, 256, 184, 320), "none"),
     ("x101_res2_0_conv3_b16", (16, 256, 184, 320), "projection"),
+    ("x101_res3_0_conv3_b16", (16, 512, 92, 160), "projection"),
     ("x101_res4_conv3_b16", (16, 1024, 46, 80), "residual"),
     ("x101_res5_conv2_b16", (16, 2048, 23, 40), "none"),
     ("r50_stem_b4", (4, 64, 368, 640), "none"),

@@ -104,12 +104,18 @@ def test_kernel_draws_on_the_current_stream_of_its_device():
     assert torch.equal(k, kn.normal_plain((1000, 4), 5, 0, torch.float32, "cuda"))
 
 
-@pytest.mark.parametrize("shape", [(10, 176580, 7), (100, 4540, 4)])
-def test_kernel_equals_the_cpu_plain_version_bit_for_bit(shape):
+@pytest.mark.parametrize("shape,keyed", [((10, 176580, 7), False), ((100, 4540, 4), False),
+                                         ((100, 4540, 4), True)])
+def test_kernel_equals_the_cpu_plain_version_bit_for_bit(shape, keyed):
+    """The class bank and a box chunk, that chunk also with its rows keyed
+    by 4540 anchors of 176580, as the mc_iid flagship draws it."""
     _cuda()
     seed = 987654321
-    k = kn.normal(seed, shape, torch.zeros(1, device="cuda"), 0).cpu()
-    p = kn.normal_plain(shape, seed, 0)
+    index = torch.randperm(176580, generator=torch.Generator().manual_seed(4))[:4540]
+    index, rows = (index, 176580) if keyed else (None, 0)
+    k = kn.normal(seed, shape, torch.zeros(1, device="cuda"), 0,
+                  None if index is None else index.cuda(), rows).cpu()
+    p = kn.normal_plain(shape, seed, 0, torch.float32, "cpu", index, rows)
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
 
 

@@ -235,8 +235,7 @@ def test_kernel_dropout_path_equals_injected_masks_of_its_bits(setup, shared):
     shapes = [(BATCH, 256, h, w) for h, w in LEVEL_HW]
     feats = [torch.ones(s).contiguous(memory_format=torch.channels_last) for s in shapes]
     offsets = level_offsets(feats, batch_shared=shared)
-    masks = [[[kd.dropout(f, seeds[t][layer], RATE, batch_shared=shared,
-                          offset=o).permute(0, 2, 3, 1)
+    masks = [[[kd.dropout_levels([f], seeds[t][layer], RATE, shared, [o])[0].permute(0, 2, 3, 1)
                for f, o in zip(feats, offsets)] for layer in range(4)] for t in range(2)]
     if shared:
         assert torch.equal(masks[0][0][0][0], masks[0][0][0][1])

@@ -22,7 +22,7 @@ one global batch of ``--batch`` random images and boxes
 
 The state: ``init`` is the trainer's (``create_train_state``);
 ``backbone`` warm-starts its backbone from ``chip_smoke.random_jax_params``,
-as chip_smoke's phase 13 does; ``random`` loads every weight from it, whose
+as chip_smoke's phase 11 does; ``random`` loads every weight from it, whose
 head is not a training init and makes the first steps' losses large.
 ``--steps`` one-process float32 steps are taken from it before the
 measured one.

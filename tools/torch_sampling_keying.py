@@ -3,7 +3,7 @@
 
 The mc_iid flagship (CLS_SAMPLING and BOX_SAMPLING mc_iid, S = 10 and 1000;
 BayesOD + 3 MC-dropout runs) at 128x128 in float32, as chip_smoke.py's
-phase 11 holds it against the CPU, with the box bank's normals keyed by
+phase 9 holds it against the CPU, with the box bank's normals keyed by
 the candidates' anchors (the port's) or, with --key rank, by their rank
 among the candidates (the row of each candidate's position), as a stream
 drawn in candidate order would key them.
